@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
+checkout, at first use, then loaded with ``ctypes``.  The file name carries
+a hash of the source, so an edited kernel is never served from a stale
+library.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelCounts:
+    """Launch counters of one kernel and of its plain twin (plain ints)."""
+
+    def __init__(self):
+        self.kernel = 0
+        self.plain = 0
+
+    def reset(self):
+        self.kernel = 0
+        self.plain = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the GPU")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: List[str]) -> Dict[str, str]:
+    """Compile every named kernel concurrently (one ``nvcc`` per source).
+    Returns each build's compiler log (ptxas register/spill report)."""
+    t0 = time.time()
+    started = {n: _start_build(n) for n in names}
+    logs = {n: _finish_build(n, s) for n, s in started.items()}
+    logs["_seconds"] = f"{time.time() - t0:.1f}"
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    if name not in _LIBS:
+        _finish_build(name, _start_build(name))
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return _LIBS[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
