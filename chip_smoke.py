@@ -6,17 +6,35 @@ Needs one CUDA GPU, ``nvcc`` and the repository checkout.  Phases, each
 printing its own line (any failure exits nonzero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both kernels from ``dragposer_tpu_torch/csrc`` (parallel ``nvcc``);
+2. build the four kernel sources from ``dragposer_tpu_torch/csrc``
+   (one ``nvcc`` each, all started together);
 3. K1 (drag-iteration block) against its plain twin on the card;
 4. K2 (temporal-transformer forward) against its plain twin, with
    ``torch.nn.Transformer`` timed beside it as a yardstick only;
-5. the main path: ``build_engine`` on ``models/model_dancedb_example`` with
-   the 6-tracker config, then ``DragEngine.run_batch_pipelined`` on
+5. the serving path: ``build_engine`` on ``models/model_dancedb_example``
+   with the 6-tracker config, then ``DragEngine.run_batch_pipelined`` on
    B = 8192 lanes × 240 frames of synthetic motion, with both kernels'
    launch counts (plain counts must stay 0); the device time of its first
    frames by kernel under ``torch.profiler``; a small run held against the
    same path on the CPU (plain twins);
-6. a ``kernels`` JSON line; the last line is the ``ok`` JSON.
+6. K3c/K3d (lanes feed-forward with hash dropout) against their plain
+   twins at S = 15, B = 512 (rate 0.1 and 0) and B = 4096, the kernel's own
+   dropout mask extracted and held against the hash bit for bit;
+7. K4a/K4b (lanes attention core) against their plain twins at the
+   training path's shapes, ``scaled_dot_product_attention`` timed beside
+   them as a yardstick only;
+8. the training path: ``train.temporal.train`` at the recipe's width and
+   batch (B = 512) on a seeded synthetic corpus, a few epochs at dropout
+   0.1 (K3 only: attention with dropout takes the plain path, the JAX
+   package's rule) and at dropout 0 (K3 and K4), launch counts set to 0
+   just before each run and read just after; then the steady-state step
+   rate over 3 × 50 steps and the device time of a few steps by kernel
+   under ``torch.profiler``;
+9. one training step on the card against the same step on the CPU given
+   the card kernel's ReLU gates, with the gate flips counted, and a
+   control (K3 on bfloat16 operands) that the same check must refuse;
+10. the B = 4096 timings, a ``kernels`` JSON line; the last line is the
+    ``ok`` JSON.  SM and memory clocks are sampled beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
 CPU tests; importing this module has no side effects.
@@ -24,6 +42,7 @@ CPU tests; importing this module has no side effects.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -399,6 +418,222 @@ def check_k2(engine, B: int, s_dec: int, mask_kind: str = "row",
     return res
 
 
+# K3: tolerances of the kernels against their plain twins on the card.  The
+# inputs are quantized (x to 2^-8, W1 and b1 to 2^-10) so that every
+# pre-activation is exact in float32 in any summation order: the ReLU gates
+# of kernel and twin then agree exactly, and what is left is the rounding
+# of the 2048-term (y, dx) and S·B-term (dW, db) sums.
+K3_TOL = dict(rtol=1e-4, atol_rel=2e-6)
+K4_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_attn_fused.py
+
+
+def k3_inputs(S: int, B: int, seed: int, F: int = 2048, D: int = 48,
+              device="cuda"):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def q(t, step):
+        return torch.round(t / step) * step
+
+    bound = float(np.sqrt(6.0 / (F + D)))
+    uni = lambda *s: torch.rand(s, generator=g) * 2 - 1  # noqa: E731
+    x = q(torch.randn((S, D, B), generator=g).clamp(-4, 4), 2.0 ** -8)
+    w1 = q(uni(F, D) * bound, 2.0 ** -10)
+    b1 = q(uni(F) / np.sqrt(D), 2.0 ** -10)
+    w2 = uni(D, F) * bound
+    b2 = uni(D) / np.sqrt(F)
+    gy = torch.randn((S, D, B), generator=g)
+    return [t.to(device).contiguous() for t in (x, w1, b1, w2, b2, gy)]
+
+
+def k3_flops(S: int, B: int, F: int = 2048, D: int = 48) -> int:
+    """K3c: FF1 and FF2, 2 FLOP per multiply-add."""
+    return 2 * S * B * 2 * D * F
+
+
+def k3_hidden_from_kernel(x, w1, b1, rate: float, seed: int):
+    """K3c's own hidden drop(relu(W1·x + b1)), (S, F, B): W2 selects D
+    hidden rows per launch and b2 = 0, so y holds them exactly."""
+    import torch
+
+    from dragposer_tpu_torch.ops import ff_fused
+
+    S, D, B = x.shape
+    F = w1.shape[0]
+    b2 = torch.zeros(D, device=x.device)
+    hidden = torch.empty((S, F, B), device=x.device)
+    rows = torch.arange(D, device=x.device)
+    for f0 in range(0, F, D):
+        f0 = min(f0, F - D)
+        w2 = torch.zeros((D, F), device=x.device)
+        w2[rows, f0 + rows] = 1.0
+        hidden[:, f0:f0 + D] = ff_fused.forward_kernel(x, w1, b1, w2, b2,
+                                                       rate, seed)
+    return hidden
+
+
+def k3_mask_from_kernel(S: int, B: int, rate: float, seed: int,
+                        F: int = 2048, D: int = 48, device="cuda"):
+    """The kernel's own keep mask (S, F, B): W1 = 0 and b1 = 1 make the
+    hidden keep · scale."""
+    import torch
+
+    dev = torch.device(device)
+    hidden = k3_hidden_from_kernel(
+        torch.zeros((S, D, B), device=dev), torch.zeros((F, D), device=dev),
+        torch.ones(F, device=dev), rate, seed)
+    return hidden > 0.5
+
+
+def check_k3(S: int, B: int, rate: float, seed: int = 4242,
+             reps: int = 5, timed: bool = True, device="cuda") -> dict:
+    """K3c and K3d against their plain twins on the card: y, the hidden's
+    zero pattern (extracted from the kernel) and all five gradients."""
+    import torch
+
+    from dragposer_tpu_torch.ops import ff_fused
+
+    x, w1, b1, w2, b2, gy = k3_inputs(S, B, seed, device=device)
+    fwd_k = lambda: ff_fused.forward_kernel(x, w1, b1, w2, b2, rate,  # noqa: E731
+                                            seed)
+    fwd_p = lambda: ff_fused.forward_plain(x, w1, b1, w2, b2, rate,  # noqa: E731
+                                           seed)
+    bwd_k = lambda: ff_fused.backward_kernel(x, w1, b1, w2, gy, rate,  # noqa: E731
+                                             seed)
+    bwd_p = lambda: ff_fused.backward_plain(x, w1, b1, w2, gy, rate,  # noqa: E731
+                                            seed)
+    y, y_ref = fwd_k(), fwd_p()
+    grads, grads_ref = bwd_k(), bwd_p()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, a, r in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
+                          (y, *grads), (y_ref, *grads_ref)):
+        err = (a - r).abs()
+        tol = K3_TOL["atol_rel"] * float(r.abs().max()) \
+            + K3_TOL["rtol"] * r.abs()
+        errs[name] = float(err.max())
+        ok &= bool((err <= tol).all()) and bool(torch.isfinite(a).all())
+    res = {"max_abs_err": errs, "ok": ok}
+    if rate > 0:
+        got = k3_mask_from_kernel(S, B, rate, seed, device=device)
+        ref = ff_fused.keep_mask_lanes(S, 2048, B, rate, seed, got.device)
+        res["mask_mismatch"] = int((got != ref).sum())
+        res["keep_share"] = float(got.float().mean())
+        res["ok"] = ok and res["mask_mismatch"] == 0
+    if timed:
+        res["fwd_ms"], res["fwd_plain_ms"] = cuda_ms(fwd_k, reps), \
+            cuda_ms(fwd_p, reps)
+        res["bwd_ms"], res["bwd_plain_ms"] = cuda_ms(bwd_k, reps), \
+            cuda_ms(bwd_p, reps)
+        wbytes = 4 * (w1.numel() + b1.numel() + w2.numel() + b2.numel())
+        act = 4 * x.numel()
+        flops = k3_flops(S, B)
+        res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
+            flops, 2 * act + wbytes)
+        # recomputed FF1, W2ᵀg, W1ᵀdpre, dW1, dW2; in x, g, weights; out
+        # dx and the weight gradients
+        res["bwd_bound_ms"], res["bwd_bound_by"] = bound_ms(
+            2.5 * flops, 3 * act + 2 * wbytes)
+    return res
+
+
+def k4_flops(sq: int, sk: int, B: int, h: int = 4, dh: int = 12) -> tuple:
+    """(forward, backward) operations: QK and AV 2·Sq·Sk·dh each, ~5 per
+    score for the softmax; the backward recomputes QK and the softmax and
+    adds g·v, dq, dk and dv (2·Sq·Sk·dh each) and ~5 per score."""
+    per = sq * sk * h * B
+    return per * (4 * dh + 5), per * (10 * dh + 10)
+
+
+def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
+             timed: bool = True, library: bool = False,
+             device="cuda") -> dict:
+    """K4a and K4b against their plain twins on the card (and, with
+    ``library``, scaled_dot_product_attention timed as a yardstick)."""
+    import torch
+
+    from dragposer_tpu_torch.ops import attn_fused
+
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(sq * 100 + sk)
+    q, k, v, gy = [torch.randn(s, generator=g).to(dev) for s in (
+        (sq, 4, 12, B), (sk, 4, 12, B), (sk, 4, 12, B), (sq, 4, 12, B))]
+    mask = torch.zeros((sq, sk), device=dev)
+    if causal:
+        mask = torch.where(torch.tril(torch.ones((sq, sk), dtype=torch.bool,
+                                                 device=dev)), 0.0,
+                           float("-inf"))
+    fwd_k = lambda: attn_fused.forward_kernel(q, k, v, mask)  # noqa: E731
+    fwd_p = lambda: attn_fused.forward_plain(q, k, v, mask)  # noqa: E731
+    bwd_k = lambda: attn_fused.backward_kernel(q, k, v, mask, gy)  # noqa: E731
+    bwd_p = lambda: attn_fused.backward_plain(q, k, v, mask, gy)  # noqa: E731
+    o, o_ref = fwd_k(), fwd_p()
+    grads, grads_ref = bwd_k(), bwd_p()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                          (o_ref, *grads_ref)):
+        err = (a - r).abs()
+        errs[name] = float(err.max())
+        ok &= bool((err <= K4_TOL["atol"] + K4_TOL["rtol"] * r.abs()).all())
+        ok &= bool(torch.isfinite(a).all())
+    res = {"max_abs_err": errs, "ok": ok}
+    if timed:
+        # a K4 launch is shorter than the host's share of its call, so
+        # events around one call time the host: every time here is device
+        # time per call (all kernels of the call summed, torch.profiler),
+        # with the kernels' event times beside them
+        res["fwd_ms"], res["fwd_plain_ms"] = device_ms(fwd_k), \
+            device_ms(fwd_p)
+        res["bwd_ms"], res["bwd_plain_ms"] = device_ms(bwd_k), \
+            device_ms(bwd_p)
+        res["fwd_event_ms"], res["bwd_event_ms"] = cuda_ms(fwd_k, reps), \
+            cuda_ms(bwd_k, reps)
+        f_fwd, f_bwd = k4_flops(sq, sk, B)
+        io = 4 * (q.numel() + k.numel() + v.numel())
+        # forward: q, k, v and the mask in, o out; backward: q, k, v, the
+        # mask and g in, dq, dk and dv out
+        res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
+            f_fwd, io + 4 * (mask.numel() + o.numel()))
+        res["bwd_bound_ms"], res["bwd_bound_by"] = bound_ms(
+            f_bwd, 2 * io + 4 * (mask.numel() + gy.numel()))
+    if library:
+        # the same function as one PyTorch call, batch-first heads
+        sd = lambda t: t.permute(3, 1, 0, 2).contiguous()  # noqa: E731
+        ql, kl, vl = (sd(t).requires_grad_(True) for t in (q, k, v))
+        gl = sd(gy)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_fwd = lambda: sdpa(ql, kl, vl, attn_mask=mask)  # noqa: E731
+        out = lib_fwd()
+        res["library_err"] = float((out.detach().permute(2, 1, 3, 0)
+                                    - o_ref).abs().max())
+        if timed:
+            res["library_fwd_ms"] = device_ms(lib_fwd)
+            res["library_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), gl, retain_graph=True))
+    return res
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: the self time of every kernel it
+    launches, summed, from ``torch.profiler`` over ``calls`` calls (host
+    time between launches left out)."""
+    fn()
+    res = profile_device_time(lambda: [fn() for _ in range(calls)], {})
+    return res["device_busy_ms"] / calls
+
+
+def gpu_clocks() -> str:
+    """SM and memory clocks now, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 # ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
@@ -409,6 +644,8 @@ T_PROFILE = 48
 SYNC_K = 24
 SEED = 2222
 WORK_DIR = os.path.join(HERE, "build", "chip_smoke")
+B_TRAIN = 512       # the recipe's batch (config.TEMPORAL_PARAM)
+B_PROFILED = 4096   # the batch the JAX package profiled its step at
 KNIFE_FREE = dict(stop_eps_pos=0.0, stop_eps_rot=0.0, min_loss_incr=-1e9,
                   max_iter=5)
 
@@ -515,6 +752,18 @@ def profile_main_path(engine, states, dqs, gp, gr, T: int) -> dict:
     kernel (self time, so nothing is counted twice) and the device's idle
     share of the profiled wall time.  The profiler's own overhead inflates
     the wall time, so the idle share is an upper bound."""
+    res = profile_device_time(
+        lambda: engine.run_batch_pipelined(states, dqs[:, :T], gp[:, :T],
+                                           gr[:, :T], sync_k=SYNC_K),
+        {"K1": "iter_block_kernel", "K2": "temporal_forward_kernel"})
+    return {"T": T, **res}
+
+
+def profile_device_time(fn, kernels: dict) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and sum the device self time
+    by kernel: ``kernels`` maps a name to a substring of the CUDA kernel's
+    symbol, everything else is "other".  The idle share is of the profiled
+    wall time, which the profiler's overhead inflates: an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -523,32 +772,384 @@ def profile_main_path(engine, states, dqs, gp, gr, T: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        engine.run_batch_pipelined(states, dqs[:, :T], gp[:, :T], gr[:, :T],
-                                   sync_k=SYNC_K)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    groups = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+    groups = dict.fromkeys([*kernels, "other"], 0.0)
     top = []
     for e in prof.key_averages():
-        # device-side events only: a CPU operator's entry repeats the time
-        # of the kernels it launched
-        if e.device_type != DeviceType.CUDA:
+        # device-side kernels only: a CPU operator's entry repeats the time
+        # of the kernels it launched, and a user annotation on the device
+        # timeline (``Optimizer.step#Adam.step``) spans them
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us <= 0:
             continue
-        key = ("K1" if "iter_block_kernel" in e.key else
-               "K2" if "temporal_forward_kernel" in e.key else "other")
+        key = next((k for k, sym in kernels.items() if sym in e.key),
+                   "other")
         groups[key] += us / 1e3
         top.append((us / 1e3, e.key[:60]))
     busy = sum(groups.values())
     top.sort(reverse=True)
-    return {"T": T, "wall_ms": wall_ms, "device_ms": groups,
+    return {"wall_ms": wall_ms, "device_ms": groups,
             "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "top_device_ms": [[round(t, 3), k] for t, k in top[:8]]}
+
+
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+TRAIN_CLIPS = (16, 1200)     # train clips × frames: ~1,000 windows
+EVAL_CLIPS = (2, 480)
+TRAIN_EPOCHS = {0.1: 4, 0.0: 2}
+TRAIN_DIR = os.path.join(WORK_DIR, "train_data")
+
+
+def write_training_corpus(root: str = TRAIN_DIR, seed: int = SEED) -> str:
+    """Seeded synthetic clips in ``root/train`` and ``root/eval``."""
+    for sub, (n, frames), s in (("train", TRAIN_CLIPS, seed),
+                                ("eval", EVAL_CLIPS, seed + 100)):
+        d = os.path.join(root, sub)
+        os.makedirs(d, exist_ok=True)
+        write_synthetic_clips(d, (frames,) * n, s)
+    return root
+
+
+def fresh_model_dir(name: str) -> str:
+    """A model directory holding a copy of the example generator."""
+    import shutil
+
+    d = os.path.join(WORK_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for f in ("generator.npz", "parameters.json"):
+        shutil.copy(os.path.join(MODEL_DIR, f), d)
+    return d
+
+
+def training_counts():
+    from dragposer_tpu_torch.ops import attn_fused, ff_fused
+
+    return {"K3c": ff_fused.COUNTS_FWD, "K3d": ff_fused.COUNTS_BWD,
+            "K4a": attn_fused.COUNTS_FWD, "K4b": attn_fused.COUNTS_BWD}
+
+
+def run_training(data_dir: str, rate: float, epochs: int,
+                 device="cuda") -> dict:
+    """The port's trainer on the card at the recipe's width and batch
+    (d 48, 4 heads, FF 2048, 3+3 layers, B 512) at dropout ``rate``, with
+    every launch count set to 0 just before and read just after."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.models import loading
+    from dragposer_tpu_torch.train import temporal as train_temporal
+
+    model_dir = fresh_model_dir(f"train_model_{rate}")
+    param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
+    counts = training_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counts.values():
+        c.reset()
+    clocks = [gpu_clocks()]
+    t0 = time.time()
+    out = train_temporal.train(data_dir, model_dir, param, epochs=epochs,
+                               log=lambda s: None, device=device)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    clocks.append(gpu_clocks())
+    launches = {k: c.kernel for k, c in counts.items()}
+    launches.update({f"{k}_plain": c.plain for k, c in counts.items()})
+    hist = out["history"]
+    steady = hist[1:] or hist
+    steps = sum(h["steps"] for h in steady)
+    windows = sum(h["windows"] for h in steady)
+    step_s = sum(h["train_seconds"] for h in steady)
+    loaded = loading.load_temporal(model_dir)
+    res = {"dropout": rate, "epochs": epochs, "batch": windows // steps,
+           "seconds": seconds, "launches": launches,
+           "steps_per_s": steps / step_s, "windows_per_s": windows / step_s,
+           "per_epoch": [{k: h[k] for k in ("epoch", "steps", "train_loss",
+                                            "eval_loss", "train_seconds")}
+                         for h in hist],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "clocks_sm_mem": clocks,
+           "checkpoint_loads": loaded is not None}
+    res["ok_finite"] = all(np.isfinite([h["train_loss"], h["eval_loss"]]).all()
+                           for h in hist)
+    if loaded is not None:
+        params, ml, sl = loaded
+        res["checkpoint_loads"] = (
+            params["enc_layers"][0]["ff1"]["w"].shape == (2048, 48)
+            and ml.shape == (24,) and bool(np.all(sl > 0)))
+    return res
+
+
+def profile_training_steps(data_dir: str, rate: float, steps: int = 3,
+                           timed_steps: int = 50, repeats: int = 3,
+                           device="cuda") -> dict:
+    """The trainer's own step (batch gather included) at the recipe's
+    batch, from the checkpoint that :func:`run_training` wrote at this
+    ``rate``: after one warm-up step, ``repeats`` runs of ``timed_steps``
+    steps each, timed on the host clock and ended by a synchronize
+    (``step_ms`` per run; the steady-state rate is from their median),
+    then ``steps`` steps under ``torch.profiler`` for where the device time
+    goes."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.data import datasets
+    from dragposer_tpu_torch.models import loading, vae
+    from dragposer_tpu_torch.models import temporal as tmodel
+    from dragposer_tpu_torch.train import temporal as train_temporal
+
+    model_dir = os.path.join(WORK_DIR, f"train_model_{rate}")
+    param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
+    gen_params, means, stds = loading.load_generator(model_dir)
+    vae_params = loading.tree_to_torch(gen_params, device)
+    statics = vae.build_statics(EXAMPLE_PARENTS, cfg.VAE_PARAM)
+    data = train_temporal.stage_dataset(datasets.TemporalTrainData(
+        **datasets.try_load_cache(datasets.cache_path(data_dir, True))),
+        device)
+    tp, ml, sl = loading.load_temporal(model_dir)
+    tparams = tmodel.trainable(tp, device)
+    step = train_temporal.make_train_step(
+        vae_params, statics, param,
+        train_temporal.make_optimizer(tparams, param))
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                                  device=device)
+    stats = [t(means["dqs"]), t(stds["dqs"]), t(ml), t(sl)]
+    host_gen = torch.Generator().manual_seed(SEED)
+    dev_gen = torch.Generator(device=device).manual_seed(SEED)
+    idx = torch.arange(param["batch_size"], device=device)
+
+    def run(n):
+        for _ in range(n):
+            step(tparams, host_gen, dev_gen,
+                 *(a.index_select(0, idx) for a in (
+                     data.dqs_past, data.dqs_future, data.disp_past_acc,
+                     data.heights)), *stats)
+
+    run(1)
+    step_ms = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run(timed_steps)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3 / timed_steps)
+    median = float(np.median(step_ms))
+    res = profile_device_time(lambda: run(steps), {
+        "K3c": "ff_fwd_kernel", "K3d": "ff_bwd_", "K4a": "attn_fwd_kernel",
+        "K4b": "attn_bwd_kernel"})
+    return {"dropout": rate, "batch": param["batch_size"],
+            "timed_steps": timed_steps, "step_ms": step_ms,
+            "steps_per_s": 1e3 / median,
+            "windows_per_s": param["batch_size"] * 1e3 / median,
+            "profiled_steps": steps, **res}
+
+
+# Card vs CPU training step: each gradient leaf to this relative L2 error.
+# The step's ReLU gates are the card kernel's on both sides (see
+# train_step_card_vs_cpu), so what is left is float32 rounding.
+GRAD_L2_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _swapped(module, **attrs):
+    """Replace attributes of ``module`` for the duration of a block."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def _bf16(t):
+    import torch
+
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _step_leaves(init, param, dev, batch, seeds):
+    """One training step from ``init`` on ``dev``: (loss, {path: (updated
+    parameter, gradient)}), both on the CPU."""
+    from dragposer_tpu_torch.models import temporal as tmodel
+    from dragposer_tpu_torch.train import temporal as train_temporal
+
+    tp = tmodel.trainable(init, dev)
+    opt = train_temporal.make_optimizer(tp, param)
+    loss = train_temporal.apply_step(tp, opt, param,
+                                     *(a.to(dev) for a in batch), seeds)
+    return float(loss), {p: (x.detach().cpu(), x.grad.cpu())
+                         for p, x in tmodel.named_leaves(tp)}
+
+
+def _card_step(init, param, batch, seeds, control: bool = False):
+    """The step on the card, and the ReLU gate (S, F, B) of each K3 site as
+    the kernel computed it, read back through K3c from the recorded
+    inputs.  ``control`` launches K3 on operands rounded to bfloat16."""
+    from dragposer_tpu_torch.ops import ff_fused
+
+    sites = []
+    ff, fwd, bwd = (ff_fused.ff_dropout_lanes, ff_fused.forward_kernel,
+                    ff_fused.backward_kernel)
+    rnd = _bf16 if control else (lambda t: t)
+
+    def record(x, ff1, ff2, rate, seed):
+        sites.append([t.detach().clone() for t in (x, ff1["w"], ff1["b"])])
+        return ff(x, ff1, ff2, rate, seed)
+
+    swaps = {"ff_dropout_lanes": record}
+    if control:
+        swaps["forward_kernel"] = lambda x, w1, b1, w2, b2, r, s: fwd(
+            rnd(x), rnd(w1), b1, rnd(w2), b2, r, s)
+        swaps["backward_kernel"] = lambda x, w1, b1, w2, g, r, s: bwd(
+            rnd(x), rnd(w1), b1, rnd(w2), rnd(g), r, s)
+    with _swapped(ff_fused, **swaps):
+        step = _step_leaves(init, param, "cuda", batch, seeds)
+    gates = [k3_hidden_from_kernel(rnd(x), rnd(w1), b1, 0.0, 0).cpu() > 0
+             for x, w1, b1 in sites]
+    return step, gates
+
+
+def _cpu_step(init, param, batch, seeds, gates=None):
+    """The step on the CPU (plain twins).  With ``gates``, each K3 site is
+    its plain function with the given ReLU gate in place of its own; the
+    number of gate entries that differ from its own is returned beside."""
+    import torch
+
+    from dragposer_tpu_torch.ops import ff_fused, hash_dropout
+
+    if gates is None:
+        return _step_leaves(init, param, "cpu", batch, seeds), None
+    todo, flips = iter(gates), []
+
+    def gated(x, ff1, ff2, rate, seed):
+        gate = next(todo)
+        pre = torch.einsum("fd,sdb->sfb", ff1["w"], x) \
+            + ff1["b"][None, :, None]
+        flips.append(int(((pre > 0) != gate).sum()))
+        h = pre * gate
+        if rate > 0:
+            keep = ff_fused.keep_mask_lanes(*pre.shape, rate, seed)
+            h = torch.where(keep, h * hash_dropout.keep_scale(rate),
+                            torch.zeros(()))
+        return torch.einsum("df,sfb->sdb", ff2["w"], h) \
+            + ff2["b"][None, :, None]
+
+    with _swapped(ff_fused, ff_dropout_lanes=gated):
+        step = _step_leaves(init, param, "cpu", batch, seeds)
+    return step, flips
+
+
+def _step_agreement(card, cpu) -> dict:
+    """Loss, gradients leaf by leaf in the L2 norm, and updated
+    parameters of two runs of one step.  The gradient's floor, 1e-6 of the
+    model's largest gradient per entry, covers the key projection's bias,
+    whose gradient is 0 in exact arithmetic (softmax ignores a shift
+    shared by a row).  Adam's first step moves a parameter by about ±lr
+    whatever its gradient's size, so parameters whose gradient is near
+    eps may differ by more than rounding: at most 0.1% beyond 1e-5."""
+    import torch
+
+    (lg, pg), (lc, pc) = card, cpu
+    gmax = max(float(pc[p][1].abs().max()) for p in pc)
+    rel = {p: float(torch.linalg.vector_norm(pg[p][1] - pc[p][1])
+                    / (torch.linalg.vector_norm(pc[p][1])
+                       + 1e-6 * gmax * pc[p][1].numel() ** 0.5))
+           for p in pc}
+    worst = max(rel, key=rel.get)
+    diffs = torch.cat([(pg[p][0] - pc[p][0]).abs().flatten() for p in pc])
+    res = {"loss_card": lg, "loss_cpu": lc,
+           "grad_rel_l2_err": rel[worst], "worst_grad_leaf": worst,
+           "param_max_abs_err": float(diffs.max()),
+           "params_over_1e-5": int((diffs > 1e-5).sum()),
+           "n_params": int(diffs.numel())}
+    res["ok"] = (abs(lg - lc) <= 1e-5 * abs(lc)
+                 and rel[worst] <= GRAD_L2_TOL
+                 and res["params_over_1e-5"] <= diffs.numel() // 1000)
+    return res
+
+
+def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16) -> dict:
+    """One training step (loss, gradients, Adam update) on the card with
+    the kernels against the same step on the CPU with the plain twins,
+    from the same init, latents, batch and dropout seeds.
+
+    The activations reaching K3 differ between the devices in their last
+    bits, so a ReLU gate whose pre-activation lies within rounding of 0 can
+    open on one device and not on the other.  One such flip moves one
+    entry of db1 by a whole column's term (~1/√(S·B·F/2) of the leaf) and
+    the column's dx, and through it every earlier leaf.  So the held
+    comparison gives the CPU the card kernel's gates: what is left is
+    float32 rounding, held to ``GRAD_L2_TOL``.  Beside it: the flips per
+    K3 site; the CPU with its own gates, which must agree as well when no
+    gate flipped; and a control, K3 on bfloat16 operands, which the same
+    check must refuse."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.data import datasets
+    from dragposer_tpu_torch.models import loading
+    from dragposer_tpu_torch.models import temporal as tmodel
+    from dragposer_tpu_torch.models import vae
+    from dragposer_tpu_torch.ops import hash_dropout
+    from dragposer_tpu_torch.train import temporal as train_temporal
+
+    param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
+    gen_params, means, stds = loading.load_generator(MODEL_DIR)
+    cached = datasets.try_load_cache(datasets.cache_path(data_dir, True))
+    if cached is not None:
+        data = datasets.TemporalTrainData(**cached)
+    else:
+        motions, _, _ = datasets.load_motion_dir(
+            os.path.join(data_dir, "train"), param,
+            height_indices=param["height_indices"])
+        data = datasets.build_temporal_dataset(motions, param, means, stds)
+    statics = vae.build_statics(EXAMPLE_PARENTS, cfg.VAE_PARAM)
+    vae_cpu = loading.tree_to_torch(gen_params, "cpu")
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        both = train_temporal._encode_windows(
+            vae_cpu, statics, g, torch.as_tensor(np.concatenate(
+                (data.dqs_past[:B], data.dqs_future[:B]), axis=1)))
+    lat, lat_f = both[:, :15], both[:, 15:]
+    disp, hts = (torch.as_tensor(a[:B]) for a in (data.disp_past_acc,
+                                                  data.heights))
+    ml = lat.reshape(-1, 24).mean(0)
+    sl = lat.reshape(-1, 24).std(0)
+    seeds = hash_dropout.seeds_for(g, train_temporal.N_SEEDS)
+    init = tmodel.init_params(torch.Generator().manual_seed(SEED), param)
+    batch = (lat, lat_f, disp, hts, ml, sl)
+    brief = ("loss_card", "loss_cpu", "grad_rel_l2_err", "worst_grad_leaf",
+             "ok")
+
+    card, gates = _card_step(init, param, batch, seeds)
+    synced, flips = _cpu_step(init, param, batch, seeds, gates)
+    own, _ = _cpu_step(init, param, batch, seeds)
+    control, control_gates = _card_step(init, param, batch, seeds,
+                                        control=True)
+    control_ref, _ = _cpu_step(init, param, batch, seeds, control_gates)
+    res = {"dropout": rate, "B": B, "grad_l2_tol": GRAD_L2_TOL,
+           **_step_agreement(card, synced), "gate_flips_per_k3_site": flips}
+    own_res = _step_agreement(card, own)
+    res["own_gates"] = {k: own_res[k] for k in brief}
+    ctrl = _step_agreement(control, control_ref)
+    res["bf16_control"] = {k: ctrl[k] for k in brief}
+    res["ok"] = (res["ok"] and (own_res["ok"] or sum(flips) > 0)
+                 and not ctrl["ok"])
+    return res
 
 
 def fail(msg: str) -> None:
@@ -571,20 +1172,21 @@ def main() -> int:
     print(smi, flush=True)
 
     from dragposer_tpu_torch import _build
+    from dragposer_tpu_torch._device import resolve_device
     from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
     from dragposer_tpu_torch.data import encoding
     from dragposer_tpu_torch.drag import fast_iter
     from dragposer_tpu_torch.ops import temporal_fused
     from dragposer_tpu_torch.ops.topology import Skeleton
 
-    logs = _build.build_all(["iter_block", "temporal_forward"])
-    ptx = [ln.strip() for name in ("iter_block", "temporal_forward")
-           for ln in logs[name].splitlines()
+    resolve_device("cuda")
+    sources = ["iter_block", "temporal_forward", "ff_lanes", "attn_lanes"]
+    logs = _build.build_all(sources)
+    ptx = [ln.strip() for name in sources for ln in logs[name].splitlines()
            if "registers" in ln or "spill" in ln]
-    print(f"[2] built iter_block.cu and temporal_forward.cu in "
+    print(f"[2] built {', '.join(n + '.cu' for n in sources)} in "
           f"{logs['_seconds']} s (nvcc -arch sm_90a); ptxas: "
           + " | ".join(ptx), flush=True)
-
     bvh = load_clip(T_MAIN, SEED)
     _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
     skeleton = Skeleton.build(parents, offsets, bvh.names)
@@ -596,8 +1198,11 @@ def main() -> int:
     for sync_k, per_lane in ((1, False), (1, True), (SYNC_K, True),
                              (SYNC_K, False)):
         main_shape = sync_k == SYNC_K and not per_lane
+        clocks = gpu_clocks()
         r = check_k1(engine, B_MAIN, sync_k, per_lane=per_lane,
                      timed=main_shape)
+        if main_shape:
+            r["clocks_sm_mem"] = [clocks, gpu_clocks()]
         print(f"[3] K1 B={B_MAIN} sync_k={sync_k} per_lane={per_lane}: "
               + json.dumps(r), flush=True)
         if not r["ok"] or r["t_mismatch"] > B_MAIN // 1000:
@@ -608,8 +1213,11 @@ def main() -> int:
     k2_main = None
     for s_dec, kind in ((5, "row"), (5, "square"), (1, "row")):
         main_shape = s_dec == 1
+        clocks = gpu_clocks()
         r = check_k2(engine, B_MAIN, s_dec, kind, timed=main_shape,
                      library=main_shape)
+        if main_shape:
+            r["clocks_sm_mem"] = [clocks, gpu_clocks()]
         print(f"[4] K2 B={B_MAIN} S_enc=14 S_dec={s_dec} mask={kind}: "
               + json.dumps(r), flush=True)
         if not r["ok"]:
@@ -627,10 +1235,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for c in (fast_iter.COUNTS, temporal_fused.COUNTS):
         c.reset()
+    clocks = [gpu_clocks()]
     t0 = time.time()
     _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
     torch.cuda.synchronize()
     seconds = time.time() - t0
+    clocks.append(gpu_clocks())
     launches = {"K1": fast_iter.COUNTS.kernel,
                 "K2": temporal_fused.COUNTS.kernel,
                 "K1_plain": fast_iter.COUNTS.plain,
@@ -645,7 +1255,8 @@ def main() -> int:
                 "frames_per_s": B_MAIN * T_MAIN / seconds,
                 "mean_iterations": float(out.iterations.float().mean()),
                 "lane0_mpjpe_m": mpjpe, "launches": launches,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "clocks_sm_mem": clocks}
     print("[5] main path 6_trackers, model_dancedb_example: "
           + json.dumps(main_res), flush=True)
     if not shapes_ok:
@@ -670,6 +1281,78 @@ def main() -> int:
     if not (ref["lockstep_ok"] and ref["stop_rule_ok"]):
         fail(f"the card's main path disagrees with the CPU's: {ref}")
 
+    # ---- K3 and K4 against their plain twins ----
+    k3_main = k3_big = None
+    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1)):
+        clocks = gpu_clocks()
+        r = check_k3(15, B, rate)
+        r["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        print(f"[6] K3c/K3d S=15 B={B} rate={rate}: " + json.dumps(r),
+              flush=True)
+        if not r["ok"]:
+            fail(f"K3 disagrees with its plain twin: {r}")
+        if (B, rate) == (B_TRAIN, 0.1):
+            k3_main = r
+        elif B == B_PROFILED:
+            k3_big = r
+    k4_main = k4_big = None
+    for B, sq, sk, causal in ((B_TRAIN, 14, 14, False),
+                              (B_TRAIN, 15, 14, False),
+                              (B_TRAIN, 15, 15, True),
+                              (B_PROFILED, 15, 15, True)):
+        main_shape = sq == sk == 15
+        clocks = gpu_clocks()
+        r = check_k4(sq, sk, B, causal, timed=main_shape, library=main_shape)
+        if main_shape:
+            r["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        print(f"[7] K4a/K4b B={B} Sq={sq} Sk={sk} causal={causal}: "
+              + json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K4 disagrees with its plain twin: {r}")
+        if main_shape and r["library_err"] > 1e-4:
+            fail(f"the SDPA yardstick computes another function: {r}")
+        if main_shape and B == B_TRAIN:
+            k4_main = r
+        elif main_shape:
+            k4_big = r
+
+    # ---- the training path ----
+    t0 = time.time()
+    data_dir = write_training_corpus()
+    print(f"[8] synthetic corpus: {TRAIN_CLIPS[0]} x {TRAIN_CLIPS[1]} train, "
+          f"{EVAL_CLIPS[0]} x {EVAL_CLIPS[1]} eval frames in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    runs = {}
+    for rate, epochs in TRAIN_EPOCHS.items():
+        r = run_training(data_dir, rate, epochs)
+        runs[rate] = r
+        print(f"[8] training path, dropout {rate}: " + json.dumps(r),
+              flush=True)
+        n = r["launches"]
+        fused_attn = rate == 0.0     # the JAX package's rule
+        if not (n["K3c"] > 0 and n["K3d"] > 0):
+            fail(f"K3 never launched in the training run: {n}")
+        if (n["K4a"] > 0) != fused_attn or (n["K4b"] > 0) != fused_attn:
+            fail(f"K4 launches break the dropout rule: {n}")
+        if any(v for k, v in n.items() if k.endswith("_plain")):
+            fail(f"a plain twin ran on the training path: {n}")
+        if not (r["ok_finite"] and r["checkpoint_loads"]):
+            fail(f"training run failed its checks: {r}")
+        clocks = gpu_clocks()
+        prof = profile_training_steps(data_dir, rate)
+        prof["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        print(f"[8] training step alone and its device time by kernel "
+              f"(torch.profiler), dropout {rate}: " + json.dumps(prof),
+              flush=True)
+    # B = 8 too: a flipped gate weighs ~1/√(S·B·F/2) of its leaf, most at
+    # the smallest batch
+    for rate, B in ((0.1, 16), (0.0, 16), (0.1, 8)):
+        r = train_step_card_vs_cpu(data_dir, rate, B)
+        print(f"[9] training step on the card vs on the CPU: "
+              + json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"the card's training step disagrees with the CPU's: {r}")
+
     kernels = [
         {"name": "K1 drag-iteration block", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/iter_block.cu",
@@ -685,8 +1368,54 @@ def main() -> int:
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"]},
+        {"name": "K3c lanes feed-forward forward", "route": "cuda",
+         "source": "dragposer_tpu_torch/csrc/ff_lanes.cu",
+         "replaces": "dragposer_tpu/ops/ff_fused.py:348",
+         "launches": runs[0.1]["launches"]["K3c"] + runs[0.0]["launches"]["K3c"],
+         "max_abs_err": k3_main["max_abs_err"]["y"],
+         "ms": k3_main["fwd_ms"], "plain_ms": k3_main["fwd_plain_ms"],
+         "bound_ms": k3_main["fwd_bound_ms"],
+         "bound_by": k3_main["fwd_bound_by"], "library_ms": None},
+        {"name": "K3d lanes feed-forward backward", "route": "cuda",
+         "source": "dragposer_tpu_torch/csrc/ff_lanes.cu",
+         "replaces": "dragposer_tpu/ops/ff_fused.py:375",
+         "launches": runs[0.1]["launches"]["K3d"] + runs[0.0]["launches"]["K3d"],
+         "max_abs_err": max(v for k, v in k3_main["max_abs_err"].items()
+                            if k != "y"),
+         "ms": k3_main["bwd_ms"], "plain_ms": k3_main["bwd_plain_ms"],
+         "bound_ms": k3_main["bwd_bound_ms"],
+         "bound_by": k3_main["bwd_bound_by"], "library_ms": None},
+        {"name": "K4a lanes attention core forward", "route": "cuda",
+         "source": "dragposer_tpu_torch/csrc/attn_lanes.cu",
+         "replaces": "dragposer_tpu/ops/attn_fused.py:159",
+         "launches": runs[0.1]["launches"]["K4a"] + runs[0.0]["launches"]["K4a"],
+         "max_abs_err": k4_main["max_abs_err"]["o"],
+         "ms": k4_main["fwd_ms"], "plain_ms": k4_main["fwd_plain_ms"],
+         "bound_ms": k4_main["fwd_bound_ms"],
+         "bound_by": k4_main["fwd_bound_by"],
+         "library_ms": k4_main["library_fwd_ms"]},
+        {"name": "K4b lanes attention core backward", "route": "cuda",
+         "source": "dragposer_tpu_torch/csrc/attn_lanes.cu",
+         "replaces": "dragposer_tpu/ops/attn_fused.py:188",
+         "launches": runs[0.1]["launches"]["K4b"] + runs[0.0]["launches"]["K4b"],
+         "max_abs_err": max(v for k, v in k4_main["max_abs_err"].items()
+                            if k != "o"),
+         "ms": k4_main["bwd_ms"], "plain_ms": k4_main["bwd_plain_ms"],
+         "bound_ms": k4_main["bwd_bound_ms"],
+         "bound_by": k4_main["bwd_bound_by"],
+         "library_ms": k4_main["library_bwd_ms"]},
     ]
-    print(f"[6] total {time.time() - t_start:.1f} s")
+    print("[10] the same kernels at B=4096, the batch the JAX package "
+          "profiled its step at: " + json.dumps({
+              "K3": {k: k3_big[k] for k in ("fwd_ms", "fwd_plain_ms",
+                                            "fwd_bound_ms", "bwd_ms",
+                                            "bwd_plain_ms", "bwd_bound_ms")},
+              "K4": {k: k4_big[k] for k in ("fwd_ms", "fwd_plain_ms",
+                                            "fwd_bound_ms", "bwd_ms",
+                                            "bwd_plain_ms", "bwd_bound_ms",
+                                            "library_fwd_ms",
+                                            "library_bwd_ms")}}), flush=True)
+    print(f"[10] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -90,12 +92,29 @@ def build_all(names: List[str]) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, declare=None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    ``declare(lib)`` sets its entry points' ``ctypes`` signatures once, when
+    the library is first loaded, so a launch pays no declaration."""
     if name not in _LIBS:
         _finish_build(name, _start_build(name))
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        if declare is not None:
+            declare(lib)
+        _LIBS[name] = lib
     return _LIBS[name]
+
+
+def check_tensor(name: str, x, shape, device, dtype=torch.float32) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``: what a kernel's pointer argument needs."""
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: {dtype} on {device} expected, got "
+                         f"{x.dtype} on {x.device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
 
 
 def check(err: int, what: str) -> None:

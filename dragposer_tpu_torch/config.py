@@ -70,6 +70,13 @@ TEMPORAL_PARAM = {
     "limbs_random_prob": 0.1,
 }
 
+LIMB_INDICES = {
+    "left_arm": [14, 15, 16, 17],
+    "right_arm": [18, 19, 20, 21],
+    "left_leg": [1, 2, 3, 4],
+    "right_leg": [5, 6, 7, 8],
+}
+
 HEIGHT_INDICES = (0, 4, 8, 13, 17, 21)
 
 

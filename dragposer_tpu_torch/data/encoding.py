@@ -50,13 +50,14 @@ class EncodedMotion:
     global_rot: np.ndarray          # (F, 4) world root rotation
     heights: Optional[np.ndarray]   # (F, H) or None
     offsets: np.ndarray             # (J, 3)
+    displacement_acc: Optional[np.ndarray] = None   # (F, 3) or None
 
 
 def encode_motion(offsets: np.ndarray, global_pos: np.ndarray,
                   rotations: np.ndarray, skeleton: Skeleton, *,
                   downsample: int = 1,
-                  height_indices: Optional[Sequence[int]] = None
-                  ) -> EncodedMotion:
+                  height_indices: Optional[Sequence[int]] = None,
+                  sample_step: Optional[int] = None) -> EncodedMotion:
     if global_pos.shape[0] != rotations.shape[0]:
         raise ValueError(f"frame mismatch: {global_pos.shape[0]} positions "
                          f"vs {rotations.shape[0]} rotations")
@@ -87,6 +88,15 @@ def encode_motion(offsets: np.ndarray, global_pos: np.ndarray,
     dqs = dual_quat.unroll(dqs, axis=0)
     dqs[:, 0, 4:7] = displacement
     dqs[:, 0, 7] = 0.0
+
+    displacement_acc = None
+    if sample_step is not None:
+        # accumulated displacement over the next `sample_step` frames (zero
+        # near the tail, as the reference's motion_data.py:288-291)
+        d = displacement.numpy()
+        displacement_acc = np.zeros_like(d)
+        for i in range(0, d.shape[0] - sample_step):
+            displacement_acc[i] = d[i: i + sample_step].sum(axis=0)
     return EncodedMotion(
         dqs=dqs.reshape(dqs.shape[0], -1).numpy(),
         displacement=displacement.numpy(),
@@ -94,7 +104,39 @@ def encode_motion(offsets: np.ndarray, global_pos: np.ndarray,
         global_rot=root_rot.numpy(),
         heights=heights,
         offsets=np.asarray(skeleton.offsets),
+        displacement_acc=displacement_acc,
     )
+
+
+class RunningStats:
+    """Cross-file statistics: mean of per-file means, sqrt(mean of per-file
+    variances); zero-variance channels forced to std 1 (the reference's
+    ``motion_data.py:125-155``)."""
+
+    def __init__(self):
+        self._means_dqs, self._vars_dqs = [], []
+        self._means_disp, self._vars_disp = [], []
+
+    def add(self, motion: EncodedMotion) -> None:
+        self._means_dqs.append(motion.dqs.mean(axis=0))
+        self._vars_dqs.append(motion.dqs.var(axis=0, ddof=1))
+        self._means_disp.append(motion.displacement.mean(axis=0))
+        self._vars_disp.append(motion.displacement.var(axis=0, ddof=1))
+
+    def finalize(self):
+        means = {
+            "dqs": np.mean(self._means_dqs, axis=0).astype(np.float32),
+            "displacement": np.mean(self._means_disp,
+                                    axis=0).astype(np.float32),
+        }
+        stds = {
+            "dqs": np.sqrt(np.mean(self._vars_dqs, axis=0)).astype(np.float32),
+            "displacement": np.sqrt(np.mean(self._vars_disp,
+                                            axis=0)).astype(np.float32),
+        }
+        for s in stds.values():
+            s[s < 1e-10] = 1.0
+        return means, stds
 
 
 def normalize(motion: EncodedMotion, means: Dict[str, np.ndarray],
@@ -107,4 +149,5 @@ def normalize(motion: EncodedMotion, means: Dict[str, np.ndarray],
         global_rot=motion.global_rot,
         heights=motion.heights,
         offsets=motion.offsets,
+        displacement_acc=motion.displacement_acc,
     )

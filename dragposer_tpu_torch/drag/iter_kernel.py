@@ -90,25 +90,16 @@ class _Params(ctypes.Structure):
     )
 
 
-def _library():
-    lib = _build.load("iter_block")
+def _declare(lib):
     lib.iter_block.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.iter_block.restype = ctypes.c_int
     lib.iter_block_params_size.restype = ctypes.c_int
     if lib.iter_block_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("iter_block Params layout does not match")
-    return lib
 
 
-def _need(name, x, shape, dtype, device):
-    if x.device != device or x.dtype != dtype:
-        raise ValueError(f"{name}: {dtype} on {device} expected, got "
-                         f"{x.dtype} on {x.device}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    return x.data_ptr()
+def _library():
+    return _build.load("iter_block", _declare)
 
 
 def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
@@ -128,23 +119,23 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
     for name in ("W1", "b1", "W2", "b2", "W3", "b3", "sq", "mq", "sd", "md",
                  "offs", "w_pos", "w_rot", "n_ee"):
         x = getattr(kctx, name)
-        _need(name, x, x.shape, f32, dev)
-    _need("parents", kctx.parents, (J,), i32, dev)
+        _build.check_tensor(name, x, x.shape, dev, f32)
+    _build.check_tensor("parents", kctx.parents, (J,), dev, i32)
     if kctx.w_pos.shape[1] not in (1, B) or kctx.w_pos.shape != (
             kctx.w_rot.shape) or kctx.w_pos.shape[0] != J:
         raise ValueError("w_pos/w_rot must be (J, 1) or (J, B)")
     if kctx.n_ee.shape[0] not in (1, B):
         raise ValueError("n_ee must be () or (B,)")
-    _need("lane_active", lane_active, (B,), torch.bool, dev)
-    _need("global_rot", global_rot, (B, 4), f32, dev)
-    _need("tposT", tposT, (J, 3, B), f32, dev)
-    _need("trotT", trotT, (J, 3, 3, B), f32, dev)
-    _need("target_latent", target_latent, (B, L), f32, dev)
+    _build.check_tensor("lane_active", lane_active, (B,), dev, torch.bool)
+    _build.check_tensor("global_rot", global_rot, (B, 4), dev, f32)
+    _build.check_tensor("tposT", tposT, (J, 3, B), dev, f32)
+    _build.check_tensor("trotT", trotT, (J, 3, 3, B), dev, f32)
+    _build.check_tensor("target_latent", target_latent, (B, L), dev, f32)
     for name in ("latent", "m", "v", "decoded_latent"):
-        _need(name, getattr(opt, name), (B, L), f32, dev)
-    _need("t", opt.t, (B,), i32, dev)
+        _build.check_tensor(name, getattr(opt, name), (B, L), dev, f32)
+    _build.check_tensor("t", opt.t, (B,), dev, i32)
     for name in ("prev_loss", "loss_pos", "loss_rot", "loss_incr"):
-        _need(name, getattr(opt, name), (B,), f32, dev)
+        _build.check_tensor(name, getattr(opt, name), (B,), dev, f32)
 
 
 def _launch(kctx: KernelContext, hyper: eng.DragHyper, sync_k: int,

@@ -1,0 +1,201 @@
+"""K3c / K3d: the lanes-layout fused feed-forward with counter-hash dropout
+(port of ``dragposer_tpu/ops/ff_fused.py:ff_dropout_lanes``).
+
+``y = W2 · drop(relu(W1 · x + b1)) + b2`` on x of shape (S, D, B), with the
+parameter tree's own ``ff1["w"]`` (F, D) and ``ff2["w"]`` (D, F).  The
+dropout mask is the TPU kernel's: element (token s, hidden row f, lane b)
+is kept iff ``fmix32(f·tile + b % tile + seed·0x9E3779B1 +
+(s·nb + b // tile)·0x7FEB352D) >= threshold(rate)``, with ``tile =
+min(256, max(128, B))`` and ``nb = ceil(B / tile)``.
+
+:func:`ff_dropout_lanes` is a ``torch.autograd.Function``: on CUDA tensors
+the forward launches K3c and the backward K3d (``csrc/ff_lanes.cu``); on
+CPU tensors both directions run the plain twins :func:`forward_plain` and
+:func:`backward_plain`.  ``COUNTS_FWD`` and ``COUNTS_BWD`` count both.
+The rows-layout ``ff_dropout`` (K3a/K3b) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dragposer_tpu_torch import _build
+from dragposer_tpu_torch.ops import hash_dropout
+
+D = 48
+FC = 64            # the kernel's hidden chunk: F must be a multiple
+TILE_B = 256
+TILE_MIX = 0x7FEB352D
+MAX_PARTIALS = 8   # column splits of the weight-gradient pass
+
+COUNTS_FWD = _build.KernelCounts()
+COUNTS_BWD = _build.KernelCounts()
+
+
+def lane_tile(b: int) -> int:
+    """The TPU kernel's lane tile for batch ``b``."""
+    return min(TILE_B, max(128, b))
+
+
+def keep_mask_lanes(s: int, f: int, b: int, rate: float, seed: int,
+                    device="cpu"):
+    """(S, F, B) boolean keep mask of the hidden, as the kernels draw it."""
+    tile = lane_tile(b)
+    nb = (b + tile - 1) // tile
+    si = torch.arange(s, dtype=torch.int64, device=device)[:, None, None]
+    fi = torch.arange(f, dtype=torch.int64, device=device)[None, :, None]
+    bi = torch.arange(b, dtype=torch.int64, device=device)[None, None, :]
+    tile_id = si * nb + bi // tile
+    pos = fi * tile + bi % tile
+    seedmix = (int(seed) * hash_dropout.GOLDEN) & hash_dropout.M32
+    h = (pos + seedmix + hash_dropout._mul32(tile_id, TILE_MIX)) \
+        & hash_dropout.M32
+    return hash_dropout.fmix32(h) >= hash_dropout.threshold(rate)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+def _hidden(x, w1, b1, rate, seed):
+    pre = torch.einsum("fd,sdb->sfb", w1, x) + b1[None, :, None]
+    h = torch.relu(pre)
+    keep = None
+    if rate > 0.0:
+        keep = keep_mask_lanes(x.shape[0], w1.shape[0], x.shape[2], rate,
+                               seed, x.device)
+        h = torch.where(keep, h * hash_dropout.keep_scale(rate),
+                        torch.zeros((), device=x.device))
+    return pre, h, keep
+
+
+def forward_plain(x, w1, b1, w2, b2, rate: float, seed: int):
+    """K3c's plain twin."""
+    COUNTS_FWD.plain += 1
+    _, h, _ = _hidden(x, w1, b1, rate, seed)
+    return torch.einsum("df,sfb->sdb", w2, h) + b2[None, :, None]
+
+
+def backward_plain(x, w1, b1, w2, g, rate: float, seed: int):
+    """K3d's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed."""
+    COUNTS_BWD.plain += 1
+    pre, hd, keep = _hidden(x, w1, b1, rate, seed)
+    dh = torch.einsum("df,sdb->sfb", w2, g)
+    if keep is not None:
+        dh = torch.where(keep, dh * hash_dropout.keep_scale(rate),
+                         torch.zeros((), device=x.device))
+    dpre = torch.where(pre > 0, dh, torch.zeros((), device=x.device))
+    dx = torch.einsum("fd,sfb->sdb", w1, dpre)
+    dw1 = torch.einsum("sfb,sdb->fd", dpre, x)
+    dw2 = torch.einsum("sdb,sfb->df", g, hd)
+    return dx, dw1, dpre.sum(dim=(0, 2)), dw2, g.sum(dim=(0, 2))
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def _declare(lib):
+    p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_float)
+    lib.ff_lanes_forward.argtypes = [p] * 6 + [i, i, i, u, u, f, i, p]
+    lib.ff_lanes_forward.restype = i
+    lib.ff_lanes_backward.argtypes = [p] * 11 + [i, i, i, i, u, u, f, i, p]
+    lib.ff_lanes_backward.restype = i
+    lib.ff_lanes_workspace_floats.argtypes = [i, i]
+    lib.ff_lanes_workspace_floats.restype = ctypes.c_longlong
+    lib.ff_lanes_column_tiles.argtypes = [i, i]
+    lib.ff_lanes_column_tiles.restype = i
+
+
+def _library():
+    return _build.load("ff_lanes", _declare)
+
+
+def _check_call(x, w1, b1, w2, b2, rate):
+    """What the kernels take; checked on every device, so the CPU tests
+    hold the callers to it too."""
+    if x.dim() != 3 or x.shape[1] != D:
+        raise ValueError(f"x: (S, {D}, B) expected, got {tuple(x.shape)}")
+    f = w1.shape[0]
+    if f % FC or f < FC:
+        raise ValueError(f"hidden width {f} is not a multiple of {FC}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    dev = x.device
+    _build.check_tensor("x", x, x.shape, dev)
+    _build.check_tensor("ff1.w", w1, (f, D), dev)
+    _build.check_tensor("ff1.b", b1, (f,), dev)
+    _build.check_tensor("ff2.w", w2, (D, f), dev)
+    if b2 is not None:
+        _build.check_tensor("ff2.b", b2, (D,), dev)
+
+
+def _mask_args(rate, seed):
+    seedmix = (int(seed) * hash_dropout.GOLDEN) & hash_dropout.M32
+    return (seedmix, hash_dropout.threshold(rate),
+            hash_dropout.keep_scale(rate) if rate > 0 else 1.0,
+            int(rate > 0.0))
+
+
+def forward_kernel(x, w1, b1, w2, b2, rate: float, seed: int):
+    """Launch K3c on the current stream (inputs checked by the caller)."""
+    s, _, b = x.shape
+    y = torch.empty_like(x)
+    err = _library().ff_lanes_forward(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), y.data_ptr(), s, b, w1.shape[0],
+        *_mask_args(rate, seed), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ff_lanes_forward")
+    COUNTS_FWD.kernel += 1
+    return y
+
+
+def backward_kernel(x, w1, b1, w2, g, rate: float, seed: int):
+    """Launch K3d on the current stream: (dx, dW1, db1, dW2, db2)."""
+    s, _, b = x.shape
+    f = w1.shape[0]
+    lib = _library()
+    parts = min(MAX_PARTIALS, lib.ff_lanes_column_tiles(s, b))
+    ws = torch.empty(lib.ff_lanes_workspace_floats(parts, f),
+                     dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
+    dw2 = torch.empty_like(w2)
+    db2 = torch.empty(D, dtype=torch.float32, device=x.device)
+    err = lib.ff_lanes_backward(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), parts, s, b, f,
+        *_mask_args(rate, seed), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ff_lanes_backward")
+    COUNTS_BWD.kernel += 1
+    return dx, dw1, db1, dw2, db2
+
+
+class _FFDropoutLanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, rate, seed):
+        _check_call(x, w1, b1, w2, b2, rate)
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.rate, ctx.seed = rate, seed
+        run = forward_kernel if x.is_cuda else forward_plain
+        return run(x, w1, b1, w2, b2, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2 = ctx.saved_tensors
+        g = g.contiguous()
+        _build.check_tensor("g", g, x.shape, x.device)
+        run = backward_kernel if x.is_cuda else backward_plain
+        return (*run(x, w1, b1, w2, g, ctx.rate, ctx.seed), None, None)
+
+
+def ff_dropout_lanes(x, ff1, ff2, rate: float, seed: int):
+    """Fused feed-forward with dropout on (S, D, B) activations; ``ff1`` and
+    ``ff2`` are ``{"w", "b"}`` dicts in the (out, in) convention, ``seed`` a
+    non-negative int.  Differentiable in x and all four weights."""
+    return _FFDropoutLanes.apply(x, ff1["w"], ff1["b"], ff2["w"], ff2["b"],
+                                 float(rate), int(seed))

@@ -172,25 +172,17 @@ def forward_plain(packed, enc_in, dec_in, tgt_mask):
 # The kernel
 # ---------------------------------------------------------------------------
 
-def _library():
-    lib = _build.load("temporal_forward")
+def _declare(lib):
     fn = lib.temporal_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.temporal_forward_n_pointers.restype = ctypes.c_int
-    return lib
 
 
-def _check_input(name, x, shape, device):
-    if x.device != device or x.dtype != torch.float32:
-        raise ValueError(f"{name}: float32 on {device} expected, got "
-                         f"{x.dtype} on {x.device}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+def _library():
+    return _build.load("temporal_forward", _declare)
 
 
 def _check_call(packed, enc_in, dec_in, tgt_mask) -> None:
@@ -202,14 +194,15 @@ def _check_call(packed, enc_in, dec_in, tgt_mask) -> None:
     if not (1 <= s_enc <= SMAX and 1 <= s_dec <= SMAX):
         raise ValueError(f"sequence lengths {s_enc}, {s_dec} outside "
                          f"1..{SMAX}")
-    _check_input("enc_in", enc_in, (B, s_enc, D_ENC), dev)
-    _check_input("dec_in", dec_in, (B, s_dec, D_LAT), dev)
+    _build.check_tensor("enc_in", enc_in, (B, s_enc, D_ENC), dev)
+    _build.check_tensor("dec_in", dec_in, (B, s_dec, D_LAT), dev)
     if tgt_mask.dim() != 2 or tgt_mask.shape[0] not in (1, s_dec):
         raise ValueError(f"tgt_mask {tuple(tgt_mask.shape)}: (1, S_dec) or "
                          "(S_dec, S_dec) expected")
-    _check_input("tgt_mask", tgt_mask, (tgt_mask.shape[0], s_dec), dev)
+    _build.check_tensor("tgt_mask", tgt_mask, (tgt_mask.shape[0], s_dec),
+                        dev)
     for p in _pointers(packed):
-        _check_input("packed weight", p, p.shape, dev)
+        _build.check_tensor("packed weight", p, p.shape, dev)
 
 
 def forward_kernel(packed, enc_in, dec_in, tgt_mask):

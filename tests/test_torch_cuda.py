@@ -7,7 +7,7 @@ at import.  On a GPU machine run them with::
     python -m pytest tests/test_torch_cuda.py -q
 
 They repeat, at small sizes, what ``chip_smoke.py`` checks at the main
-path's sizes, with its tolerances (``chip_smoke.K1_TOL`` / ``K2_TOL``).
+paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``).
 """
 
 import pytest
@@ -70,3 +70,45 @@ def test_k2_rejects_bad_input(engines):
     mask = torch.zeros(1, 1, device="cuda")
     with pytest.raises(ValueError):
         temporal_fused.forward(packed, None, enc, dec, mask)
+
+
+@pytest.mark.parametrize("s,b,rate", [(3, 130, 0.1), (2, 300, 0.1),
+                                      (2, 300, 0.0), (1, 17, 0.1)])
+def test_k3_kernels_match_plain(engines, s, b, rate):
+    r = chip_smoke.check_k3(s, b, rate, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("sq,sk,b,causal", [(14, 14, 37, False),
+                                            (15, 14, 130, False),
+                                            (15, 15, 64, True),
+                                            (1, 15, 8, False)])
+def test_k4_kernels_match_plain(engines, sq, sk, b, causal):
+    r = chip_smoke.check_k4(sq, sk, b, causal, timed=False,
+                            library=sq > 1)
+    assert r["ok"], r
+    if sq > 1:
+        assert r["library_err"] < 1e-4, r
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_training_step_card_matches_cpu(engines, tmp_path, rate):
+    data = tmp_path / "data" / "train"
+    data.mkdir(parents=True)
+    chip_smoke.write_synthetic_clips(str(data), (300, 300), 3)
+    r = chip_smoke.train_step_card_vs_cpu(str(tmp_path / "data"), rate, B=8)
+    assert r["ok"], r
+
+
+def test_k3_k4_reject_bad_input(engines):
+    from dragposer_tpu_torch.ops import attn_fused, ff_fused
+
+    x = torch.zeros(2, 48, 8, device="cuda")
+    w1 = torch.zeros(2048, 48, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ff_fused.ff_dropout_lanes(x, {"w": w1, "b": torch.zeros(2048)},
+                                  {"w": torch.zeros(48, 2048), "b":
+                                   torch.zeros(48)}, 0.1, 1)
+    q = torch.zeros(3, 4, 12, 8, device="cuda")
+    with pytest.raises(ValueError):
+        attn_fused.attn_core_lanes(q, q.cpu(), q)

@@ -28,9 +28,12 @@ def _imported(path):
 
 def test_sources_found():
     assert len(SOURCES) > 20
-    assert (ROOT / "dragposer_tpu_torch" / "csrc" / "iter_block.cu").exists()
-    assert (ROOT / "dragposer_tpu_torch" / "csrc"
-            / "temporal_forward.cu").exists()
+    for name in ("iter_block", "temporal_forward", "ff_lanes", "attn_lanes"):
+        assert (ROOT / "dragposer_tpu_torch" / "csrc" / f"{name}.cu").exists()
+    for module in ("ops/hash_dropout.py", "ops/ff_fused.py",
+                   "ops/attn_fused.py", "train/temporal.py",
+                   "cli/train_temporal.py", "data/datasets.py"):
+        assert ROOT / "dragposer_tpu_torch" / module in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,
