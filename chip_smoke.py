@@ -6,7 +6,7 @@ Needs one CUDA GPU, ``nvcc`` and the repository checkout.  Phases, each
 printing its own line (any failure exits nonzero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four kernel sources from ``dragposer_tpu_torch/csrc``
+2. build the five kernel sources from ``dragposer_tpu_torch/csrc``
    (one ``nvcc`` each, all started together);
 3. K1 (drag-iteration block) against its plain twin on the card;
 4. K2 (temporal-transformer forward) against its plain twin, with
@@ -23,17 +23,30 @@ printing its own line (any failure exits nonzero):
 7. K4a/K4b (lanes attention core) against their plain twins at the
    training path's shapes, ``scaled_dot_product_attention`` timed beside
    them as a yardstick only;
-8. the training path: ``train.temporal.train`` at the recipe's width and
-   batch (B = 512) on a seeded synthetic corpus, a few epochs at dropout
-   0.1 (K3 only: attention with dropout takes the plain path, the JAX
-   package's rule) and at dropout 0 (K3 and K4), launch counts set to 0
-   just before each run and read just after; then the steady-state step
-   rate over 3 × 50 steps and the device time of a few steps by kernel
-   under ``torch.profiler``;
-9. one training step on the card against the same step on the CPU given
-   the card kernel's ReLU gates, with the gate flips counted, and a
-   control (K3 on bfloat16 operands) that the same check must refuse;
-10. the B = 4096 timings, a ``kernels`` JSON line; the last line is the
+8. the temporal trainer in the lanes layout: ``train.temporal.train`` at
+   the recipe's width and batch (B = 512) on a seeded synthetic corpus, a
+   few epochs at dropout 0.1 (K3c/K3d only: attention with dropout takes
+   the plain path, the JAX package's rule) and at dropout 0 (K3c/K3d and
+   K4), launch counts set to 0 just before each run and read just after;
+   then the steady-state step rate over 3 × 50 steps and the device time
+   of a few steps by kernel under ``torch.profiler``;
+9. one lanes training step on the card against the same step on the CPU
+   given the card kernel's ReLU gates, with the gate flips counted, and a
+   control (the kernels on bfloat16 operands) that the check must refuse;
+10. K3a/K3b (rows feed-forward) against their plain twins at M = 15 × 512
+    (rate 0.1 and 0) and 15 × 4096, the kernel's mask against the hash;
+11. the pose-VAE trainer: ``train.vae.train(use_fk=True)`` for one epoch
+    of the corpus at the recipe's batch of 64 pairs (pairs/s, loss terms,
+    eval MPJPE/MPEEPE, peak memory, the checkpoint read back); the step
+    alone over 50 steps and under ``torch.profiler``; one VAE step (the
+    example generator) on the card against the CPU;
+12. the temporal trainer in the rows layout (K3a/K3b) on the latents of
+    the generator just trained, as in 8;
+13. one rows training step on the card against the CPU, as in 9;
+14. the trained generator and rows-trained predictor through
+    ``build_engine`` and ``run_batch_pipelined`` (B = 64 × 48 frames,
+    K1 and K2 launched, MPJPE printed but not gated);
+15. the B = 4096 timings, a ``kernels`` JSON line; the last line is the
     ``ok`` JSON.  SM and memory clocks are sampled beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
@@ -427,8 +440,44 @@ K3_TOL = dict(rtol=1e-4, atol_rel=2e-6)
 K4_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_attn_fused.py
 
 
+# The two layouts of the fused feed-forward: the ops/ff_fused functions of
+# each (kernel launches, plain twins, the keep mask, the autograd entry),
+# the shape of its activations for S tokens × B lanes, and its kernels'
+# symbols in a profile (every ff_common.cuh kernel is a template on the
+# layout struct).
+K3_LAYOUTS = {
+    "lanes": dict(fwd="forward_kernel", bwd="backward_kernel",
+                  fwd_plain="forward_plain", bwd_plain="backward_plain",
+                  entry="ff_dropout_lanes", names=("K3c", "K3d"),
+                  symbol="LanesLayout", shape=lambda S, B: (S, 48, B)),
+    "rows": dict(fwd="forward_kernel_rows", bwd="backward_kernel_rows",
+                 fwd_plain="forward_plain_rows",
+                 bwd_plain="backward_plain_rows", entry="ff_dropout_seeded",
+                 names=("K3a", "K3b"), symbol="RowsLayout",
+                 shape=lambda S, B: (S * B, 48)),
+}
+
+
+def k3_fn(layout: str, role: str):
+    """ops/ff_fused's function ``role`` of ``layout`` (looked up at call
+    time, so that a swapped attribute is seen)."""
+    from dragposer_tpu_torch.ops import ff_fused
+
+    return getattr(ff_fused, K3_LAYOUTS[layout][role])
+
+
+def k3_keep_mask(layout: str, S: int, B: int, rate: float, seed: int,
+                 F: int = 2048, device="cpu"):
+    """The hash's keep mask of the hidden: (S, F, B) or (S·B, F)."""
+    from dragposer_tpu_torch.ops import ff_fused
+
+    if layout == "rows":
+        return ff_fused.keep_mask_rows(S * B, F, rate, seed, device)
+    return ff_fused.keep_mask_lanes(S, F, B, rate, seed, device)
+
+
 def k3_inputs(S: int, B: int, seed: int, F: int = 2048, D: int = 48,
-              device="cuda"):
+              device="cuda", layout: str = "lanes"):
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -436,73 +485,77 @@ def k3_inputs(S: int, B: int, seed: int, F: int = 2048, D: int = 48,
     def q(t, step):
         return torch.round(t / step) * step
 
+    shape = K3_LAYOUTS[layout]["shape"](S, B)
     bound = float(np.sqrt(6.0 / (F + D)))
     uni = lambda *s: torch.rand(s, generator=g) * 2 - 1  # noqa: E731
-    x = q(torch.randn((S, D, B), generator=g).clamp(-4, 4), 2.0 ** -8)
+    x = q(torch.randn(shape, generator=g).clamp(-4, 4), 2.0 ** -8)
     w1 = q(uni(F, D) * bound, 2.0 ** -10)
     b1 = q(uni(F) / np.sqrt(D), 2.0 ** -10)
     w2 = uni(D, F) * bound
     b2 = uni(D) / np.sqrt(F)
-    gy = torch.randn((S, D, B), generator=g)
+    gy = torch.randn(shape, generator=g)
     return [t.to(device).contiguous() for t in (x, w1, b1, w2, b2, gy)]
 
 
 def k3_flops(S: int, B: int, F: int = 2048, D: int = 48) -> int:
-    """K3c: FF1 and FF2, 2 FLOP per multiply-add."""
+    """K3a/K3c over S·B tokens: FF1 and FF2, 2 FLOP per multiply-add."""
     return 2 * S * B * 2 * D * F
 
 
-def k3_hidden_from_kernel(x, w1, b1, rate: float, seed: int):
-    """K3c's own hidden drop(relu(W1·x + b1)), (S, F, B): W2 selects D
-    hidden rows per launch and b2 = 0, so y holds them exactly."""
+def k3_hidden_from_kernel(x, w1, b1, rate: float, seed: int,
+                          layout: str = "lanes"):
+    """The forward kernel's own hidden drop(relu(W1·x + b1)), (S, F, B) or
+    (M, F) (the feature axis is dim 1 in both layouts): W2 selects D hidden
+    rows per launch and b2 = 0, so y holds them exactly."""
     import torch
 
-    from dragposer_tpu_torch.ops import ff_fused
-
-    S, D, B = x.shape
-    F = w1.shape[0]
+    D, F = x.shape[1], w1.shape[0]
+    fwd = k3_fn(layout, "fwd")
     b2 = torch.zeros(D, device=x.device)
-    hidden = torch.empty((S, F, B), device=x.device)
+    hidden = torch.empty((x.shape[0], F) + tuple(x.shape[2:]),
+                         device=x.device)
     rows = torch.arange(D, device=x.device)
     for f0 in range(0, F, D):
         f0 = min(f0, F - D)
         w2 = torch.zeros((D, F), device=x.device)
         w2[rows, f0 + rows] = 1.0
-        hidden[:, f0:f0 + D] = ff_fused.forward_kernel(x, w1, b1, w2, b2,
-                                                       rate, seed)
+        hidden[:, f0:f0 + D] = fwd(x, w1, b1, w2, b2, rate, seed)
     return hidden
 
 
 def k3_mask_from_kernel(S: int, B: int, rate: float, seed: int,
-                        F: int = 2048, D: int = 48, device="cuda"):
-    """The kernel's own keep mask (S, F, B): W1 = 0 and b1 = 1 make the
-    hidden keep · scale."""
+                        F: int = 2048, D: int = 48, device="cuda",
+                        layout: str = "lanes"):
+    """The kernel's own keep mask, (S, F, B) or (S·B, F): W1 = 0 and b1 = 1
+    make the hidden keep · scale."""
     import torch
 
     dev = torch.device(device)
     hidden = k3_hidden_from_kernel(
-        torch.zeros((S, D, B), device=dev), torch.zeros((F, D), device=dev),
-        torch.ones(F, device=dev), rate, seed)
+        torch.zeros(K3_LAYOUTS[layout]["shape"](S, B), device=dev),
+        torch.zeros((F, D), device=dev), torch.ones(F, device=dev), rate,
+        seed, layout)
     return hidden > 0.5
 
 
 def check_k3(S: int, B: int, rate: float, seed: int = 4242,
-             reps: int = 5, timed: bool = True, device="cuda") -> dict:
-    """K3c and K3d against their plain twins on the card: y, the hidden's
-    zero pattern (extracted from the kernel) and all five gradients."""
+             reps: int = 5, timed: bool = True, device="cuda",
+             layout: str = "lanes") -> dict:
+    """The feed-forward kernels of ``layout`` (K3c/K3d, or K3a/K3b on the
+    S·B rows) against their plain twins on the card: y, the hidden's zero
+    pattern (extracted from the kernel) and all five gradients."""
     import torch
 
-    from dragposer_tpu_torch.ops import ff_fused
-
-    x, w1, b1, w2, b2, gy = k3_inputs(S, B, seed, device=device)
-    fwd_k = lambda: ff_fused.forward_kernel(x, w1, b1, w2, b2, rate,  # noqa: E731
-                                            seed)
-    fwd_p = lambda: ff_fused.forward_plain(x, w1, b1, w2, b2, rate,  # noqa: E731
-                                           seed)
-    bwd_k = lambda: ff_fused.backward_kernel(x, w1, b1, w2, gy, rate,  # noqa: E731
-                                             seed)
-    bwd_p = lambda: ff_fused.backward_plain(x, w1, b1, w2, gy, rate,  # noqa: E731
-                                            seed)
+    x, w1, b1, w2, b2, gy = k3_inputs(S, B, seed, device=device,
+                                      layout=layout)
+    fwd_k = lambda: k3_fn(layout, "fwd")(  # noqa: E731
+        x, w1, b1, w2, b2, rate, seed)
+    fwd_p = lambda: k3_fn(layout, "fwd_plain")(  # noqa: E731
+        x, w1, b1, w2, b2, rate, seed)
+    bwd_k = lambda: k3_fn(layout, "bwd")(  # noqa: E731
+        x, w1, b1, w2, gy, rate, seed)
+    bwd_p = lambda: k3_fn(layout, "bwd_plain")(  # noqa: E731
+        x, w1, b1, w2, gy, rate, seed)
     y, y_ref = fwd_k(), fwd_p()
     grads, grads_ref = bwd_k(), bwd_p()
     if device == "cuda":
@@ -517,8 +570,9 @@ def check_k3(S: int, B: int, rate: float, seed: int = 4242,
         ok &= bool((err <= tol).all()) and bool(torch.isfinite(a).all())
     res = {"max_abs_err": errs, "ok": ok}
     if rate > 0:
-        got = k3_mask_from_kernel(S, B, rate, seed, device=device)
-        ref = ff_fused.keep_mask_lanes(S, 2048, B, rate, seed, got.device)
+        got = k3_mask_from_kernel(S, B, rate, seed, device=device,
+                                  layout=layout)
+        ref = k3_keep_mask(layout, S, B, rate, seed, device=got.device)
         res["mask_mismatch"] = int((got != ref).sum())
         res["keep_share"] = float(got.float().mean())
         res["ok"] = ok and res["mask_mismatch"] == 0
@@ -762,8 +816,10 @@ def profile_main_path(engine, states, dqs, gp, gr, T: int) -> dict:
 def profile_device_time(fn, kernels: dict) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device self time
     by kernel: ``kernels`` maps a name to a substring of the CUDA kernel's
-    symbol, everything else is "other".  The idle share is of the profiled
-    wall time, which the profiler's overhead inflates: an upper bound."""
+    symbol, or to a tuple of substrings that must all occur (the first
+    name that matches takes the kernel), everything else is "other".  The
+    idle share is of the profiled wall time, which the profiler's overhead
+    inflates: an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -789,8 +845,9 @@ def profile_device_time(fn, kernels: dict) -> dict:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us <= 0:
             continue
-        key = next((k for k, sym in kernels.items() if sym in e.key),
-                   "other")
+        key = next((k for k, sym in kernels.items()
+                    if all(part in e.key for part in (
+                        (sym,) if isinstance(sym, str) else sym))), "other")
         groups[key] += us / 1e3
         top.append((us / 1e3, e.key[:60]))
     busy = sum(groups.values())
@@ -821,29 +878,48 @@ def write_training_corpus(root: str = TRAIN_DIR, seed: int = SEED) -> str:
     return root
 
 
-def fresh_model_dir(name: str) -> str:
-    """A model directory holding a copy of the example generator."""
+def fresh_model_dir(name: str, generator_dir: str = MODEL_DIR) -> str:
+    """A model directory holding a copy of a generator (by default the
+    example's)."""
     import shutil
 
     d = os.path.join(WORK_DIR, name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     for f in ("generator.npz", "parameters.json"):
-        shutil.copy(os.path.join(MODEL_DIR, f), d)
+        shutil.copy(os.path.join(generator_dir, f), d)
     return d
 
 
 def training_counts():
     from dragposer_tpu_torch.ops import attn_fused, ff_fused
 
-    return {"K3c": ff_fused.COUNTS_FWD, "K3d": ff_fused.COUNTS_BWD,
+    return {"K3a": ff_fused.COUNTS_FWD_ROWS, "K3b": ff_fused.COUNTS_BWD_ROWS,
+            "K3c": ff_fused.COUNTS_FWD, "K3d": ff_fused.COUNTS_BWD,
             "K4a": attn_fused.COUNTS_FWD, "K4b": attn_fused.COUNTS_BWD}
 
 
-def run_training(data_dir: str, rate: float, epochs: int,
-                 device="cuda") -> dict:
+def training_kernels(layout: str) -> dict:
+    """Profile groups of a training step's kernels (see
+    :func:`profile_device_time`)."""
+    lay = K3_LAYOUTS[layout]
+    fwd, bwd = lay["names"]
+    groups = {fwd: ("ff_fwd_", lay["symbol"]), bwd: ("ff_bwd_", lay["symbol"])}
+    if layout == "lanes":
+        groups.update({"K4a": "attn_fwd_kernel", "K4b": "attn_bwd_kernel"})
+    return groups
+
+
+def train_model_dir(layout: str, rate: float) -> str:
+    return os.path.join(WORK_DIR, f"train_model_{layout}_{rate}")
+
+
+def run_training(data_dir: str, rate: float, epochs: int, device="cuda",
+                 layout: str = "lanes",
+                 generator_dir: str = MODEL_DIR) -> dict:
     """The port's trainer on the card at the recipe's width and batch
-    (d 48, 4 heads, FF 2048, 3+3 layers, B 512) at dropout ``rate``, with
+    (d 48, 4 heads, FF 2048, 3+3 layers, B 512) at dropout ``rate`` in
+    ``layout``, on the latents of the generator in ``generator_dir``, with
     every launch count set to 0 just before and read just after."""
     import torch
 
@@ -851,17 +927,21 @@ def run_training(data_dir: str, rate: float, epochs: int,
     from dragposer_tpu_torch.models import loading
     from dragposer_tpu_torch.train import temporal as train_temporal
 
-    model_dir = fresh_model_dir(f"train_model_{rate}")
+    model_dir = fresh_model_dir(os.path.basename(train_model_dir(layout,
+                                                                 rate)),
+                                generator_dir)
     param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
     counts = training_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     for c in counts.values():
         c.reset()
     clocks = [gpu_clocks()]
     t0 = time.time()
     out = train_temporal.train(data_dir, model_dir, param, epochs=epochs,
-                               log=lambda s: None, device=device)
+                               log=lambda s: None, device=device,
+                               layout=layout)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     clocks.append(gpu_clocks())
@@ -873,13 +953,16 @@ def run_training(data_dir: str, rate: float, epochs: int,
     windows = sum(h["windows"] for h in steady)
     step_s = sum(h["train_seconds"] for h in steady)
     loaded = loading.load_temporal(model_dir)
-    res = {"dropout": rate, "epochs": epochs, "batch": windows // steps,
+    res = {"layout": layout, "dropout": rate, "epochs": epochs,
+           "batch": windows // steps,
            "seconds": seconds, "launches": launches,
            "steps_per_s": steps / step_s, "windows_per_s": windows / step_s,
            "per_epoch": [{k: h[k] for k in ("epoch", "steps", "train_loss",
                                             "eval_loss", "train_seconds")}
                          for h in hist],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # the run's own: the peak above what earlier phases still hold
+           "run_peak_mem_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
            "clocks_sm_mem": clocks,
            "checkpoint_loads": loaded is not None}
     res["ok_finite"] = all(np.isfinite([h["train_loss"], h["eval_loss"]]).all()
@@ -894,7 +977,7 @@ def run_training(data_dir: str, rate: float, epochs: int,
 
 def profile_training_steps(data_dir: str, rate: float, steps: int = 3,
                            timed_steps: int = 50, repeats: int = 3,
-                           device="cuda") -> dict:
+                           device="cuda", layout: str = "lanes") -> dict:
     """The trainer's own step (batch gather included) at the recipe's
     batch, from the checkpoint that :func:`run_training` wrote at this
     ``rate``: after one warm-up step, ``repeats`` runs of ``timed_steps``
@@ -910,7 +993,7 @@ def profile_training_steps(data_dir: str, rate: float, steps: int = 3,
     from dragposer_tpu_torch.models import temporal as tmodel
     from dragposer_tpu_torch.train import temporal as train_temporal
 
-    model_dir = os.path.join(WORK_DIR, f"train_model_{rate}")
+    model_dir = train_model_dir(layout, rate)
     param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
     gen_params, means, stds = loading.load_generator(model_dir)
     vae_params = loading.tree_to_torch(gen_params, device)
@@ -922,7 +1005,7 @@ def profile_training_steps(data_dir: str, rate: float, steps: int = 3,
     tparams = tmodel.trainable(tp, device)
     step = train_temporal.make_train_step(
         vae_params, statics, param,
-        train_temporal.make_optimizer(tparams, param))
+        train_temporal.make_optimizer(tparams, param), layout)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
                                   device=device)
     stats = [t(means["dqs"]), t(stds["dqs"]), t(ml), t(sl)]
@@ -946,10 +1029,8 @@ def profile_training_steps(data_dir: str, rate: float, steps: int = 3,
         torch.cuda.synchronize()
         step_ms.append((time.time() - t0) * 1e3 / timed_steps)
     median = float(np.median(step_ms))
-    res = profile_device_time(lambda: run(steps), {
-        "K3c": "ff_fwd_kernel", "K3d": "ff_bwd_", "K4a": "attn_fwd_kernel",
-        "K4b": "attn_bwd_kernel"})
-    return {"dropout": rate, "batch": param["batch_size"],
+    res = profile_device_time(lambda: run(steps), training_kernels(layout))
+    return {"layout": layout, "dropout": rate, "batch": param["batch_size"],
             "timed_steps": timed_steps, "step_ms": step_ms,
             "steps_per_s": 1e3 / median,
             "windows_per_s": param["batch_size"] * 1e3 / median,
@@ -981,7 +1062,7 @@ def _bf16(t):
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _step_leaves(init, param, dev, batch, seeds):
+def _step_leaves(init, param, dev, batch, seeds, layout: str = "lanes"):
     """One training step from ``init`` on ``dev``: (loss, {path: (updated
     parameter, gradient)}), both on the CPU."""
     from dragposer_tpu_torch.models import temporal as tmodel
@@ -990,70 +1071,90 @@ def _step_leaves(init, param, dev, batch, seeds):
     tp = tmodel.trainable(init, dev)
     opt = train_temporal.make_optimizer(tp, param)
     loss = train_temporal.apply_step(tp, opt, param,
-                                     *(a.to(dev) for a in batch), seeds)
+                                     *(a.to(dev) for a in batch), seeds,
+                                     layout)
     return float(loss), {p: (x.detach().cpu(), x.grad.cpu())
                          for p, x in tmodel.named_leaves(tp)}
 
 
-def _card_step(init, param, batch, seeds, control: bool = False):
-    """The step on the card, and the ReLU gate (S, F, B) of each K3 site as
-    the kernel computed it, read back through K3c from the recorded
-    inputs.  ``control`` launches K3 on operands rounded to bfloat16."""
+def _k3_site_input(x, layout: str):
+    """A feed-forward site's input as its kernel takes it: (S, D, B), or
+    the (..., D) rows flattened to (M, D)."""
+    return x if layout == "lanes" else x.reshape(-1, x.shape[-1])
+
+
+def _card_step(init, param, batch, seeds, control: bool = False,
+               layout: str = "lanes"):
+    """The step on the card, and the ReLU gate ((S, F, B) or (M, F)) of
+    each feed-forward site as the kernel computed it, read back through the
+    forward kernel from the recorded inputs.  ``control`` launches the
+    kernels on operands rounded to bfloat16."""
     from dragposer_tpu_torch.ops import ff_fused
 
+    lay = K3_LAYOUTS[layout]
     sites = []
-    ff, fwd, bwd = (ff_fused.ff_dropout_lanes, ff_fused.forward_kernel,
-                    ff_fused.backward_kernel)
+    ff, fwd, bwd = (k3_fn(layout, "entry"), k3_fn(layout, "fwd"),
+                    k3_fn(layout, "bwd"))
     rnd = _bf16 if control else (lambda t: t)
 
     def record(x, ff1, ff2, rate, seed):
-        sites.append([t.detach().clone() for t in (x, ff1["w"], ff1["b"])])
+        sites.append([t.detach().clone() for t in (
+            _k3_site_input(x, layout), ff1["w"], ff1["b"])])
         return ff(x, ff1, ff2, rate, seed)
 
-    swaps = {"ff_dropout_lanes": record}
+    swaps = {lay["entry"]: record}
     if control:
-        swaps["forward_kernel"] = lambda x, w1, b1, w2, b2, r, s: fwd(
+        swaps[lay["fwd"]] = lambda x, w1, b1, w2, b2, r, s: fwd(
             rnd(x), rnd(w1), b1, rnd(w2), b2, r, s)
-        swaps["backward_kernel"] = lambda x, w1, b1, w2, g, r, s: bwd(
+        swaps[lay["bwd"]] = lambda x, w1, b1, w2, g, r, s: bwd(
             rnd(x), rnd(w1), b1, rnd(w2), rnd(g), r, s)
     with _swapped(ff_fused, **swaps):
-        step = _step_leaves(init, param, "cuda", batch, seeds)
-    gates = [k3_hidden_from_kernel(rnd(x), rnd(w1), b1, 0.0, 0).cpu() > 0
+        step = _step_leaves(init, param, "cuda", batch, seeds, layout)
+    gates = [k3_hidden_from_kernel(rnd(x), rnd(w1), b1, 0.0, 0,
+                                   layout).cpu() > 0
              for x, w1, b1 in sites]
     return step, gates
 
 
-def _cpu_step(init, param, batch, seeds, gates=None):
-    """The step on the CPU (plain twins).  With ``gates``, each K3 site is
-    its plain function with the given ReLU gate in place of its own; the
-    number of gate entries that differ from its own is returned beside."""
+def _cpu_step(init, param, batch, seeds, gates=None, layout: str = "lanes"):
+    """The step on the CPU (plain twins).  With ``gates``, each
+    feed-forward site is its plain function with the given ReLU gate in
+    place of its own; the number of gate entries that differ from its own
+    is returned beside."""
     import torch
 
     from dragposer_tpu_torch.ops import ff_fused, hash_dropout
 
     if gates is None:
-        return _step_leaves(init, param, "cpu", batch, seeds), None
+        return _step_leaves(init, param, "cpu", batch, seeds, layout), None
     todo, flips = iter(gates), []
 
     def gated(x, ff1, ff2, rate, seed):
         gate = next(todo)
-        pre = torch.einsum("fd,sdb->sfb", ff1["w"], x) \
-            + ff1["b"][None, :, None]
+        if layout == "lanes":
+            pre = torch.einsum("fd,sdb->sfb", ff1["w"], x) \
+                + ff1["b"][None, :, None]
+        else:
+            pre = _k3_site_input(x, layout) @ ff1["w"].T + ff1["b"]
         flips.append(int(((pre > 0) != gate).sum()))
         h = pre * gate
         if rate > 0:
-            keep = ff_fused.keep_mask_lanes(*pre.shape, rate, seed)
+            keep = (ff_fused.keep_mask_lanes(*pre.shape, rate, seed)
+                    if layout == "lanes" else
+                    ff_fused.keep_mask_rows(*pre.shape, rate, seed))
             h = torch.where(keep, h * hash_dropout.keep_scale(rate),
                             torch.zeros(()))
-        return torch.einsum("df,sfb->sdb", ff2["w"], h) \
-            + ff2["b"][None, :, None]
+        if layout == "lanes":
+            return torch.einsum("df,sfb->sdb", ff2["w"], h) \
+                + ff2["b"][None, :, None]
+        return (h @ ff2["w"].T + ff2["b"]).reshape(x.shape)
 
-    with _swapped(ff_fused, ff_dropout_lanes=gated):
-        step = _step_leaves(init, param, "cpu", batch, seeds)
+    with _swapped(ff_fused, **{K3_LAYOUTS[layout]["entry"]: gated}):
+        step = _step_leaves(init, param, "cpu", batch, seeds, layout)
     return step, flips
 
 
-def _step_agreement(card, cpu) -> dict:
+def _step_agreement(card, cpu, grad_tol: float = GRAD_L2_TOL) -> dict:
     """Loss, gradients leaf by leaf in the L2 norm, and updated
     parameters of two runs of one step.  The gradient's floor, 1e-6 of the
     model's largest gradient per entry, covers the key projection's bias,
@@ -1077,15 +1178,17 @@ def _step_agreement(card, cpu) -> dict:
            "params_over_1e-5": int((diffs > 1e-5).sum()),
            "n_params": int(diffs.numel())}
     res["ok"] = (abs(lg - lc) <= 1e-5 * abs(lc)
-                 and rel[worst] <= GRAD_L2_TOL
+                 and rel[worst] <= grad_tol
                  and res["params_over_1e-5"] <= diffs.numel() // 1000)
     return res
 
 
-def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16) -> dict:
-    """One training step (loss, gradients, Adam update) on the card with
-    the kernels against the same step on the CPU with the plain twins,
-    from the same init, latents, batch and dropout seeds.
+def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16,
+                           layout: str = "lanes",
+                           generator_dir: str = MODEL_DIR) -> dict:
+    """One training step (loss, gradients, Adam update) in ``layout`` on
+    the card with the kernels against the same step on the CPU with the
+    plain twins, from the same init, latents, batch and dropout seeds.
 
     The activations reaching K3 differ between the devices in their last
     bits, so a ReLU gate whose pre-activation lies within rounding of 0 can
@@ -1108,7 +1211,7 @@ def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16) -> dict:
     from dragposer_tpu_torch.train import temporal as train_temporal
 
     param = dict(cfg.TEMPORAL_PARAM, dropout=rate)
-    gen_params, means, stds = loading.load_generator(MODEL_DIR)
+    gen_params, means, stds = loading.load_generator(generator_dir)
     cached = datasets.try_load_cache(datasets.cache_path(data_dir, True))
     if cached is not None:
         data = datasets.TemporalTrainData(**cached)
@@ -1135,13 +1238,15 @@ def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16) -> dict:
     brief = ("loss_card", "loss_cpu", "grad_rel_l2_err", "worst_grad_leaf",
              "ok")
 
-    card, gates = _card_step(init, param, batch, seeds)
-    synced, flips = _cpu_step(init, param, batch, seeds, gates)
-    own, _ = _cpu_step(init, param, batch, seeds)
+    card, gates = _card_step(init, param, batch, seeds, layout=layout)
+    synced, flips = _cpu_step(init, param, batch, seeds, gates, layout)
+    own, _ = _cpu_step(init, param, batch, seeds, layout=layout)
     control, control_gates = _card_step(init, param, batch, seeds,
-                                        control=True)
-    control_ref, _ = _cpu_step(init, param, batch, seeds, control_gates)
-    res = {"dropout": rate, "B": B, "grad_l2_tol": GRAD_L2_TOL,
+                                        control=True, layout=layout)
+    control_ref, _ = _cpu_step(init, param, batch, seeds, control_gates,
+                               layout)
+    res = {"layout": layout, "dropout": rate, "B": B,
+           "grad_l2_tol": GRAD_L2_TOL,
            **_step_agreement(card, synced), "gate_flips_per_k3_site": flips}
     own_res = _step_agreement(card, own)
     res["own_gates"] = {k: own_res[k] for k in brief}
@@ -1150,6 +1255,290 @@ def train_step_card_vs_cpu(data_dir: str, rate: float, B: int = 16) -> dict:
     res["ok"] = (res["ok"] and (own_res["ok"] or sum(flips) > 0)
                  and not ctrl["ok"])
     return res
+
+
+# ---------------------------------------------------------------------------
+# The VAE trainer, and the models it makes driven end to end
+# ---------------------------------------------------------------------------
+
+VAE_EPOCHS = 1
+# Card vs CPU VAE step: each gradient leaf to this relative L2 error (the
+# second-order consecutive term goes through the decoder and FK twice).
+VAE_GRAD_L2_TOL = 1e-4
+VAE_DATA_DIR = os.path.join(WORK_DIR, "vae_data")
+
+
+def vae_corpus(root: str = VAE_DATA_DIR, corpus: str = TRAIN_DIR) -> str:
+    """A data directory whose train/ and eval/ are the training corpus's
+    (links), so that the caches of the freshly trained generator's
+    windows stay apart from the example generator's."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for sub in ("train", "eval"):
+        os.symlink(os.path.join(corpus, sub), os.path.join(root, sub),
+                   target_is_directory=True)
+    return root
+
+
+def run_vae_training(data_dir: str, epochs: int = VAE_EPOCHS,
+                     device="cuda") -> dict:
+    """The port's VAE trainer on the card with the recipe
+    (``config.VAE_PARAM``: batch 64 pairs, AdamW 1e-4, FK loss) for
+    ``epochs`` over the corpus; its model directory is ``vae_model``."""
+    import shutil
+
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.models import loading
+    from dragposer_tpu_torch.train import vae as train_vae
+
+    model_dir = os.path.join(WORK_DIR, "vae_model")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    clocks = [gpu_clocks()]
+    t0 = time.time()
+    out = train_vae.train(data_dir, model_dir, use_fk=True, epochs=epochs,
+                          log=lambda s: None, device=device)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    clocks.append(gpu_clocks())
+    hist = out["history"]
+    pairs = sum(h["pairs"] for h in hist)
+    steps = sum(h["steps"] for h in hist)
+    step_s = sum(h["train_seconds"] for h in hist)
+    last = hist[-1]
+    res = {"epochs": epochs, "batch": cfg.VAE_PARAM["batch_size"],
+           "pairs": pairs, "steps": steps, "seconds": seconds,
+           "pairs_per_s": pairs / step_s, "steps_per_s": steps / step_s,
+           "train_loss": last["train_loss"], "terms": last["terms"],
+           "mpjpe_m": last["mpjpe"], "mpeepe_m": last["mpeepe"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # the run's own: the peak above what earlier phases still hold
+           "run_peak_mem_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+           "clocks_sm_mem": clocks, "model_dir": model_dir}
+    res["ok_finite"] = bool(np.isfinite(
+        [last["train_loss"], last["mpjpe"], last["mpeepe"],
+         *last["terms"].values()]).all())
+    params, means, stds = loading.load_generator(model_dir)
+    res["checkpoint_loads"] = (
+        params["decoder"]["convs"][2]["w"].shape == (92, 92, 1)
+        and means["dqs"].shape == (176,) and bool(np.all(stds["dqs"] > 0))
+        and os.path.exists(os.path.join(model_dir, "parameters.json")))
+    return res
+
+
+def profile_vae_steps(data_dir: str, model_dir: str, steps: int = 3,
+                      timed_steps: int = 50, device="cuda") -> dict:
+    """The VAE trainer's own step (pair gather included) at the recipe's
+    batch, from the generator that :func:`run_vae_training` wrote: after
+    one warm-up step, ``timed_steps`` steps on the host clock ended by a
+    synchronize, then ``steps`` steps under ``torch.profiler``."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.data import datasets
+    from dragposer_tpu_torch.models import loading, vae
+    from dragposer_tpu_torch.models import temporal as tmodel
+    from dragposer_tpu_torch.ops.topology import Skeleton
+    from dragposer_tpu_torch.train import vae as train_vae
+
+    param = cfg.VAE_PARAM
+    params, means, stds = loading.load_generator(model_dir)
+    cached = datasets.try_load_cache(datasets.cache_path(data_dir, False))
+    skeleton = Skeleton.build(EXAMPLE_PARENTS, cached["offsets"])
+    statics = vae.statics_on(vae.build_statics(EXAMPLE_PARENTS, param),
+                             device)
+    tp = tmodel.trainable(params, device)
+    step = train_vae.make_train_step(statics, skeleton, param, True,
+                                     train_vae.make_optimizer(tp, param))
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    windows = t(cached["dqs"]), t(cached["displacement"])
+    stats = t(means["dqs"]), t(stds["dqs"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    idx = torch.arange(param["batch_size"], device=device)
+
+    def run(n):
+        for _ in range(n):
+            step(tp, gen, *train_vae.pair_batch(*windows, idx), *stats)
+
+    run(1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run(timed_steps)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3 / timed_steps
+    return {"batch": param["batch_size"], "timed_steps": timed_steps,
+            "step_ms": step_ms,
+            "pairs_per_s": param["batch_size"] * 1e3 / step_ms,
+            "profiled_steps": steps,
+            **profile_device_time(lambda: run(steps), {})}
+
+
+def vae_step_card_vs_cpu(data_dir: str, model_dir: str = MODEL_DIR,
+                         B: int = 64) -> dict:
+    """One VAE training step (six-term loss with the grad-of-grad
+    consecutive term, backward, clip, AdamW) on the card against the same
+    step on the CPU: the generator of ``model_dir``, the first B window
+    pairs of the corpus normalized with its statistics, one
+    reparameterization draw.  Held as the temporal step is
+    (:func:`_step_agreement`), gradients to ``VAE_GRAD_L2_TOL``.
+
+    The default is the example generator, whose statistics come from
+    mocap.  The synthetic corpus's own root-rotation channel is nearly
+    constant (w's std 2.9e-6), so one float32 ulp of a unit quaternion's w
+    moves its normalized value by 0.02 and the two devices' rounding alone
+    moves the loss by ~2e-5 of itself."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.data import datasets
+    from dragposer_tpu_torch.models import loading, vae
+    from dragposer_tpu_torch.models import temporal as tmodel
+    from dragposer_tpu_torch.ops.topology import Skeleton
+    from dragposer_tpu_torch.train import vae as train_vae
+
+    param = cfg.VAE_PARAM
+    params, means, stds = loading.load_generator(model_dir)
+    cached = datasets.try_load_cache(datasets.cache_path(data_dir, False))
+    skeleton = Skeleton.build(EXAMPLE_PARENTS, cached["offsets"])
+    statics = vae.build_statics(EXAMPLE_PARENTS, param)
+
+    def renormalized(field, key):
+        raw = (cached[field][:B + 1] * cached[f"stds_{key}"]
+               + cached[f"means_{key}"])
+        return torch.as_tensor(((raw - means[key]) / stds[key])
+                               .astype(np.float32))
+
+    dqs, disp = train_vae.pair_batch(renormalized("dqs", "dqs"),
+                                     renormalized("displacement",
+                                                  "displacement"),
+                                     torch.arange(B))
+    noise = torch.randn((2 * B, param["latent_dim"]),
+                        generator=torch.Generator().manual_seed(SEED))
+    stats = [torch.as_tensor(means["dqs"]), torch.as_tensor(stds["dqs"])]
+
+    def step_on(dev):
+        tp = tmodel.trainable(params, dev)
+        opt = train_vae.make_optimizer(tp, param)
+        step = train_vae.make_train_step(vae.statics_on(statics, dev),
+                                         skeleton, param, True, opt)
+        total, _ = step(tp, None, dqs.to(dev), disp.to(dev),
+                        *(a.to(dev) for a in (*stats, noise)))
+        return float(total), {p: (x.detach().cpu(), x.grad.cpu())
+                              for p, x in tmodel.named_leaves(tp)}
+
+    return {"B": B, "generator": os.path.basename(model_dir),
+            "grad_l2_tol": VAE_GRAD_L2_TOL,
+            **_step_agreement(step_on("cuda"), step_on("cpu"),
+                              VAE_GRAD_L2_TOL)}
+
+
+def close_the_loop(model_dir: str, bvh, B: int = 64, T: int = 48) -> dict:
+    """``cli.eval_drag.build_engine`` on ``model_dir`` (the freshly trained
+    generator and rows-trained temporal predictor), then B lanes × T frames
+    of the synthetic clip through ``run_batch_pipelined``, launch counts
+    set to 0 just before and read just after."""
+    import torch
+
+    from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.drag import fast_iter
+    from dragposer_tpu_torch.ops import temporal_fused
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    skeleton = Skeleton.build(parents, offsets, bvh.names)
+    engine, means, stds = build_engine(model_dir, parents,
+                                       resolve_config("6_trackers"),
+                                       skeleton=skeleton)
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T)
+    torch.cuda.synchronize()
+    for c in (fast_iter.COUNTS, temporal_fused.COUNTS):
+        c.reset()
+    t0 = time.time()
+    _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {"K1": fast_iter.COUNTS.kernel,
+                "K2": temporal_fused.COUNTS.kernel,
+                "K1_plain": fast_iter.COUNTS.plain,
+                "K2_plain": temporal_fused.COUNTS.plain}
+    finite = (tuple(out.pose.shape) == (B, T, 88)
+              and bool(torch.isfinite(out.pose).all())
+              and bool(torch.isfinite(out.global_pos).all()))
+    return {"B": B, "T": T, "seconds": seconds, "launches": launches,
+            "mean_iterations": float(out.iterations.float().mean()),
+            "lane0_mpjpe_m": lane0_mpjpe(out, bvh, means, stds, skeleton, T),
+            "ok": (finite and launches["K1"] > 0 and launches["K2"] > 0
+                   and not launches["K1_plain"]
+                   and not launches["K2_plain"])}
+
+
+def train_and_check(phase: str, data_dir: str, layout: str,
+                    generator_dir: str = MODEL_DIR) -> dict:
+    """The trainer in ``layout`` at each dropout of ``TRAIN_EPOCHS``, its
+    launch counts held to the path's kernels (the other layout's and every
+    plain count 0; K4 at dropout 0 only, the JAX package's rule), then the
+    step alone timed and profiled.  Returns the runs by dropout."""
+    runs = {}
+    mine = K3_LAYOUTS[layout]["names"]
+    other = K3_LAYOUTS["rows" if layout == "lanes" else "lanes"]["names"]
+    for rate, epochs in TRAIN_EPOCHS.items():
+        r = run_training(data_dir, rate, epochs, layout=layout,
+                         generator_dir=generator_dir)
+        runs[rate] = r
+        print(f"{phase} training path, {layout} layout, dropout {rate}: "
+              + json.dumps(r), flush=True)
+        n = r["launches"]
+        fused_attn = layout == "lanes" and rate == 0.0
+        if not all(n[k] > 0 for k in mine) or any(n[k] for k in other):
+            fail(f"the {layout} feed-forward kernels did not carry the "
+                 f"training run: {n}")
+        if (n["K4a"] > 0) != fused_attn or (n["K4b"] > 0) != fused_attn:
+            fail(f"K4 launches break the dropout rule: {n}")
+        if any(v for k, v in n.items() if k.endswith("_plain")):
+            fail(f"a plain twin ran on the training path: {n}")
+        if not (r["ok_finite"] and r["checkpoint_loads"]):
+            fail(f"training run failed its checks: {r}")
+        clocks = gpu_clocks()
+        prof = profile_training_steps(data_dir, rate, layout=layout)
+        prof["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        print(f"{phase} training step alone and its device time by kernel "
+              f"(torch.profiler), {layout} layout, dropout {rate}: "
+              + json.dumps(prof), flush=True)
+    return runs
+
+
+def step_card_vs_cpu(phase: str, data_dir: str, rate: float, B: int,
+                     layout: str, generator_dir: str = MODEL_DIR) -> None:
+    r = train_step_card_vs_cpu(data_dir, rate, B, layout, generator_dir)
+    print(f"{phase} training step on the card vs on the CPU: "
+          + json.dumps(r), flush=True)
+    if not r["ok"]:
+        fail(f"the card's training step disagrees with the CPU's: {r}")
+
+
+def k3_entries(r: dict, fwd_name: str, bwd_name: str, source: str,
+               replaces, launches) -> list:
+    """The ``kernels`` entries of a feed-forward pair from its check."""
+    return [
+        {"name": fwd_name, "route": "cuda", "source": source,
+         "replaces": replaces[0], "launches": launches[0],
+         "max_abs_err": r["max_abs_err"]["y"], "ms": r["fwd_ms"],
+         "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound_ms"],
+         "bound_by": r["fwd_bound_by"], "library_ms": None},
+        {"name": bwd_name, "route": "cuda", "source": source,
+         "replaces": replaces[1], "launches": launches[1],
+         "max_abs_err": max(v for k, v in r["max_abs_err"].items()
+                            if k != "y"),
+         "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+         "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
+         "library_ms": None}]
 
 
 def fail(msg: str) -> None:
@@ -1180,7 +1569,8 @@ def main() -> int:
     from dragposer_tpu_torch.ops.topology import Skeleton
 
     resolve_device("cuda")
-    sources = ["iter_block", "temporal_forward", "ff_lanes", "attn_lanes"]
+    sources = ["iter_block", "temporal_forward", "ff_lanes", "ff_rows",
+               "attn_lanes"]
     logs = _build.build_all(sources)
     ptx = [ln.strip() for name in sources for ln in logs[name].splitlines()
            if "registers" in ln or "spill" in ln]
@@ -1316,42 +1706,66 @@ def main() -> int:
         elif main_shape:
             k4_big = r
 
-    # ---- the training path ----
+    # ---- the training path, lanes layout ----
     t0 = time.time()
     data_dir = write_training_corpus()
     print(f"[8] synthetic corpus: {TRAIN_CLIPS[0]} x {TRAIN_CLIPS[1]} train, "
           f"{EVAL_CLIPS[0]} x {EVAL_CLIPS[1]} eval frames in "
           f"{time.time() - t0:.1f} s", flush=True)
-    runs = {}
-    for rate, epochs in TRAIN_EPOCHS.items():
-        r = run_training(data_dir, rate, epochs)
-        runs[rate] = r
-        print(f"[8] training path, dropout {rate}: " + json.dumps(r),
-              flush=True)
-        n = r["launches"]
-        fused_attn = rate == 0.0     # the JAX package's rule
-        if not (n["K3c"] > 0 and n["K3d"] > 0):
-            fail(f"K3 never launched in the training run: {n}")
-        if (n["K4a"] > 0) != fused_attn or (n["K4b"] > 0) != fused_attn:
-            fail(f"K4 launches break the dropout rule: {n}")
-        if any(v for k, v in n.items() if k.endswith("_plain")):
-            fail(f"a plain twin ran on the training path: {n}")
-        if not (r["ok_finite"] and r["checkpoint_loads"]):
-            fail(f"training run failed its checks: {r}")
-        clocks = gpu_clocks()
-        prof = profile_training_steps(data_dir, rate)
-        prof["clocks_sm_mem"] = [clocks, gpu_clocks()]
-        print(f"[8] training step alone and its device time by kernel "
-              f"(torch.profiler), dropout {rate}: " + json.dumps(prof),
-              flush=True)
+    runs = {"lanes": train_and_check("[8]", data_dir, "lanes")}
     # B = 8 too: a flipped gate weighs ~1/√(S·B·F/2) of its leaf, most at
     # the smallest batch
     for rate, B in ((0.1, 16), (0.0, 16), (0.1, 8)):
-        r = train_step_card_vs_cpu(data_dir, rate, B)
-        print(f"[9] training step on the card vs on the CPU: "
-              + json.dumps(r), flush=True)
+        step_card_vs_cpu("[9]", data_dir, rate, B, "lanes")
+
+    # ---- K3a/K3b against their plain twins ----
+    k3r_main = k3r_big = None
+    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1)):
+        clocks = gpu_clocks()
+        r = check_k3(15, B, rate, layout="rows")
+        r["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        print(f"[10] K3a/K3b M=15x{B}={15 * B} rate={rate}: " + json.dumps(r),
+              flush=True)
         if not r["ok"]:
-            fail(f"the card's training step disagrees with the CPU's: {r}")
+            fail(f"K3a/K3b disagree with their plain twins: {r}")
+        if (B, rate) == (B_TRAIN, 0.1):
+            k3r_main = r
+        elif B == B_PROFILED:
+            k3r_big = r
+
+    # ---- the pose-VAE trainer, then the rows trainer on its generator ----
+    vae_data = vae_corpus()
+    vae_run = run_vae_training(vae_data)
+    print("[11] VAE training path (recipe: batch 64 pairs, FK loss): "
+          + json.dumps(vae_run), flush=True)
+    if not (vae_run["ok_finite"] and vae_run["checkpoint_loads"]):
+        fail(f"VAE training run failed its checks: {vae_run}")
+    clocks = gpu_clocks()
+    prof = profile_vae_steps(vae_data, vae_run["model_dir"])
+    prof["clocks_sm_mem"] = [clocks, gpu_clocks()]
+    print("[11] VAE training step alone and its device time "
+          "(torch.profiler): " + json.dumps(prof), flush=True)
+    r = vae_step_card_vs_cpu(vae_data)
+    print("[11] VAE training step on the card vs on the CPU: "
+          + json.dumps(r), flush=True)
+    if not r["ok"]:
+        fail(f"the card's VAE step disagrees with the CPU's: {r}")
+    runs["rows"] = train_and_check("[12]", vae_data, "rows",
+                                   vae_run["model_dir"])
+    for rate, B in ((0.1, 16), (0.0, 16), (0.1, 8)):
+        step_card_vs_cpu("[13]", vae_data, rate, B, "rows",
+                         vae_run["model_dir"])
+
+    # ---- the trained models drive the serving path ----
+    loop = close_the_loop(train_model_dir("rows", 0.1), bvh)
+    print("[14] reconstruction with the freshly trained generator and "
+          "rows-trained temporal predictor (MPJPE not gated): "
+          + json.dumps(loop), flush=True)
+    if not loop["ok"]:
+        fail(f"the trained models do not drive the serving path: {loop}")
+
+    def launched(layout, name):
+        return sum(r["launches"][name] for r in runs[layout].values())
 
     kernels = [
         {"name": "K1 drag-iteration block", "route": "cuda",
@@ -1368,27 +1782,22 @@ def main() -> int:
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"]},
-        {"name": "K3c lanes feed-forward forward", "route": "cuda",
-         "source": "dragposer_tpu_torch/csrc/ff_lanes.cu",
-         "replaces": "dragposer_tpu/ops/ff_fused.py:348",
-         "launches": runs[0.1]["launches"]["K3c"] + runs[0.0]["launches"]["K3c"],
-         "max_abs_err": k3_main["max_abs_err"]["y"],
-         "ms": k3_main["fwd_ms"], "plain_ms": k3_main["fwd_plain_ms"],
-         "bound_ms": k3_main["fwd_bound_ms"],
-         "bound_by": k3_main["fwd_bound_by"], "library_ms": None},
-        {"name": "K3d lanes feed-forward backward", "route": "cuda",
-         "source": "dragposer_tpu_torch/csrc/ff_lanes.cu",
-         "replaces": "dragposer_tpu/ops/ff_fused.py:375",
-         "launches": runs[0.1]["launches"]["K3d"] + runs[0.0]["launches"]["K3d"],
-         "max_abs_err": max(v for k, v in k3_main["max_abs_err"].items()
-                            if k != "y"),
-         "ms": k3_main["bwd_ms"], "plain_ms": k3_main["bwd_plain_ms"],
-         "bound_ms": k3_main["bwd_bound_ms"],
-         "bound_by": k3_main["bwd_bound_by"], "library_ms": None},
+        *k3_entries(k3r_main, "K3a rows feed-forward forward",
+                    "K3b rows feed-forward backward",
+                    "dragposer_tpu_torch/csrc/ff_rows.cu",
+                    ("dragposer_tpu/ops/ff_fused.py:163",
+                     "dragposer_tpu/ops/ff_fused.py:189"),
+                    (launched("rows", "K3a"), launched("rows", "K3b"))),
+        *k3_entries(k3_main, "K3c lanes feed-forward forward",
+                    "K3d lanes feed-forward backward",
+                    "dragposer_tpu_torch/csrc/ff_lanes.cu",
+                    ("dragposer_tpu/ops/ff_fused.py:348",
+                     "dragposer_tpu/ops/ff_fused.py:375"),
+                    (launched("lanes", "K3c"), launched("lanes", "K3d"))),
         {"name": "K4a lanes attention core forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/attn_lanes.cu",
          "replaces": "dragposer_tpu/ops/attn_fused.py:159",
-         "launches": runs[0.1]["launches"]["K4a"] + runs[0.0]["launches"]["K4a"],
+         "launches": launched("lanes", "K4a"),
          "max_abs_err": k4_main["max_abs_err"]["o"],
          "ms": k4_main["fwd_ms"], "plain_ms": k4_main["fwd_plain_ms"],
          "bound_ms": k4_main["fwd_bound_ms"],
@@ -1397,7 +1806,7 @@ def main() -> int:
         {"name": "K4b lanes attention core backward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/attn_lanes.cu",
          "replaces": "dragposer_tpu/ops/attn_fused.py:188",
-         "launches": runs[0.1]["launches"]["K4b"] + runs[0.0]["launches"]["K4b"],
+         "launches": launched("lanes", "K4b"),
          "max_abs_err": max(v for k, v in k4_main["max_abs_err"].items()
                             if k != "o"),
          "ms": k4_main["bwd_ms"], "plain_ms": k4_main["bwd_plain_ms"],
@@ -1405,17 +1814,15 @@ def main() -> int:
          "bound_by": k4_main["bwd_bound_by"],
          "library_ms": k4_main["library_bwd_ms"]},
     ]
-    print("[10] the same kernels at B=4096, the batch the JAX package "
+    times = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
+             "bwd_plain_ms", "bwd_bound_ms")
+    print("[15] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
-              "K3": {k: k3_big[k] for k in ("fwd_ms", "fwd_plain_ms",
-                                            "fwd_bound_ms", "bwd_ms",
-                                            "bwd_plain_ms", "bwd_bound_ms")},
-              "K4": {k: k4_big[k] for k in ("fwd_ms", "fwd_plain_ms",
-                                            "fwd_bound_ms", "bwd_ms",
-                                            "bwd_plain_ms", "bwd_bound_ms",
-                                            "library_fwd_ms",
+              "K3a/K3b": {k: k3r_big[k] for k in times},
+              "K3c/K3d": {k: k3_big[k] for k in times},
+              "K4": {k: k4_big[k] for k in (*times, "library_fwd_ms",
                                             "library_bwd_ms")}}), flush=True)
-    print(f"[10] total {time.time() - t_start:.1f} s")
+    print(f"[15] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout, at first use, then loaded with ``ctypes``.  The file name carries
-a hash of the source, so an edited kernel is never served from a stale
-library.  Nothing here runs at import time.
+a hash of the source and of the shared headers (``csrc/*.cuh``), so an
+edited kernel is never served from a stale library.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -54,9 +55,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header in ``csrc/``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str):

@@ -6,11 +6,14 @@ tokens are latent(24) ⊕ accumulated displacement(3) ⊕ heights(6); decoder
 tokens are latents.  The layer math is ``torch.nn.Transformer``'s (post-norm,
 final LayerNorm on both stacks); parameters keep the JAX package's tree.
 
-:func:`forward` is the eval forward.  :func:`forward_T` with ``train=True``
-is the lanes-layout training forward: activations (S, D, B), counter-hash
-dropout at the JAX package's sites and in its seed order, the feed-forwards
-through K3 (``ops/ff_fused``) and, at dropout 0, the attention core through
-K4 (``ops/attn_fused``).
+:func:`forward` is the rows layout, activations (B, S, D): the eval
+forward, and with ``train=True`` the rows-layout training forward (JAX
+``forward(train=True, fused_ff=True)``): counter-hash dropout at the JAX
+package's sites and in its seed order, the feed-forwards through K3a/K3b
+(``ops/ff_fused.ff_dropout_seeded``), attention as plain tensor code.
+:func:`forward_T` with ``train=True`` is the lanes-layout training forward:
+activations (S, D, B), the same sites, the feed-forwards through K3c/K3d
+and, at dropout 0, the attention core through K4 (``ops/attn_fused``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,12 @@ def _layer_norm(x, p, eps: float = 1e-5):
     return (x - mu) / torch.sqrt(var + eps) * p["g"] + p["b"]
 
 
-def _attention(p, q_in, kv_in, n_heads: int, mask=None):
+def _attention(p, q_in, kv_in, n_heads: int, mask=None, rate: float = 0.0,
+               seed: int = 0, train: bool = False):
     """Multi-head attention, torch packed-projection layout.
-    q_in (..., Sq, D), kv_in (..., Sk, D), mask additive (Sq|1, Sk)."""
+    q_in (..., Sq, D), kv_in (..., Sk, D), mask additive (Sq|1, Sk).  In
+    training, dropout on the probabilities (torch MHA's site), hashed over
+    their flat (..., H, Sq, Sk) positions."""
     d = q_in.shape[-1]
     dh = d // n_heads
     wq, wk, wv = p["in_w"].split(d, dim=0)
@@ -57,7 +63,8 @@ def _attention(p, q_in, kv_in, n_heads: int, mask=None):
     scores = torch.einsum("...qhd,...khd->...hqk", q, k) / math.sqrt(dh)
     if mask is not None:
         scores = scores + mask
-    attn = torch.softmax(scores, dim=-1)
+    attn = hash_dropout.dropout(torch.softmax(scores, dim=-1), rate, seed,
+                                train)
     out = torch.einsum("...hqk,...khd->...qhd", attn, v).reshape(q_in.shape)
     return out @ p["out_w"].T + p["out_b"]
 
@@ -66,29 +73,55 @@ def _ff(lp, x):
     return _linear(torch.relu(_linear(x, lp["ff1"])), lp["ff2"])
 
 
-def forward(params, param, latent, latent_target, tgt_mask=None):
+def forward(params, param, latent, latent_target, tgt_mask=None, *,
+            train: bool = False, seeds: Optional[Sequence[int]] = None):
     """latent (..., S_past, latent+3+H), latent_target (..., S_fut, latent)
-    → (..., S_fut, latent).  Eval mode (no dropout)."""
+    → (..., S_fut, latent).
+
+    Eval mode by default.  With ``train`` it is JAX ``forward(train=True,
+    fused_ff=True)``: dropout at every site in JAX's order, each site's
+    mask indexed by the flat C-order position of its tensor, the
+    feed-forwards through K3a/K3b with their site's seed.  ``seeds`` holds
+    the 64 per-site seeds, consumed one per site, fused sites included (JAX
+    draws threefry bits at the other sites: same distribution, other
+    bits)."""
+    if train and seeds is None:
+        raise ValueError("the training forward needs its dropout seeds")
     d = param["features_transformer"]
     h = param["n_heads"]
+    rate = param["dropout"] if train else 0.0
     max_len = len(param["past_frames"]) + len(param["future_frames"])
     pe = torch.as_tensor(positional_encoding(max_len, d), device=latent.device)
+    nk = iter(seeds).__next__ if train else (lambda: 0)
 
-    src = _linear(latent, params["in_proj_enc"]) + pe[: latent.shape[-2]]
-    tgt = _linear(latent_target, params["in_proj_dec"]) \
-        + pe[: latent_target.shape[-2]]
+    def drop(x, seed):
+        return hash_dropout.dropout(x, rate, seed, train)
+
+    def ff(lp, x, seed):
+        if train:
+            return ff_fused.ff_dropout_seeded(x, lp["ff1"], lp["ff2"], rate,
+                                              seed)
+        return _ff(lp, x)
+
+    def attn(p, q_in, kv_in, mask=None):
+        return _attention(p, q_in, kv_in, h, mask, rate, nk(), train)
+
+    src = _linear(drop(latent, nk()), params["in_proj_enc"])  # in_dropout
+    tgt = _linear(latent_target, params["in_proj_dec"])
+    src = drop(src + pe[: latent.shape[-2]], nk())
+    tgt = drop(tgt + pe[: latent_target.shape[-2]], nk())
     for lp in params["enc_layers"]:
-        src = _layer_norm(src + _attention(lp["self_attn"], src, src, h),
+        src = _layer_norm(src + drop(attn(lp["self_attn"], src, src), nk()),
                           lp["ln1"])
-        src = _layer_norm(src + _ff(lp, src), lp["ln2"])
+        src = _layer_norm(src + drop(ff(lp, src, nk()), nk()), lp["ln2"])
     memory = _layer_norm(src, params["enc_norm"])
     for lp in params["dec_layers"]:
         tgt = _layer_norm(
-            tgt + _attention(lp["self_attn"], tgt, tgt, h, mask=tgt_mask),
+            tgt + drop(attn(lp["self_attn"], tgt, tgt, tgt_mask), nk()),
             lp["ln1"])
         tgt = _layer_norm(
-            tgt + _attention(lp["cross_attn"], tgt, memory, h), lp["ln2"])
-        tgt = _layer_norm(tgt + _ff(lp, tgt), lp["ln3"])
+            tgt + drop(attn(lp["cross_attn"], tgt, memory), nk()), lp["ln2"])
+        tgt = _layer_norm(tgt + drop(ff(lp, tgt, nk()), nk()), lp["ln3"])
     return _linear(_layer_norm(tgt, params["dec_norm"]), params["out_proj"])
 
 

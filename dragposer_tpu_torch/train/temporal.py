@@ -8,9 +8,12 @@ set.  Limb-occlusion augmentation replaces a random limb's (normalized) past
 dual quats with denormalized-scale Gaussian noise at p=0.1 per limb per
 batch, a reference quirk kept verbatim.
 
-The step runs in the lanes layout (``models/temporal.forward_T``, train
-mode): on a CUDA device its feed-forwards go through K3 and, at dropout 0,
-its attention cores through K4; on the CPU through their plain twins.
+The step runs in one of the JAX package's two layouts: "lanes"
+(``models/temporal.forward_T``, train mode, the default), whose
+feed-forwards go through K3c/K3d and, at dropout 0, its attention cores
+through K4; or "rows" (``models/temporal.forward``, train mode), whose
+feed-forwards go through K3a/K3b.  On the CPU the kernels' plain twins run
+instead.
 Randomness comes from two ``torch.Generator``\\ s: a CPU one for everything
 drawn on the host (shuffles, per-site dropout seeds, limb choices, the
 noise seed), and one on the device for the VAE's reparameterization noise.
@@ -93,19 +96,18 @@ def _teacher_forced_loss(tparams, param, latents, latents_future, disp_acc,
                          heights, means_latent, stds_latent, *, train: bool,
                          seeds: Sequence[int] | None = None,
                          layout: str = "lanes"):
-    """MSE of the teacher-forced predictor.  ``layout="lanes"`` is the
-    training layout (``forward_T``, the JAX package's TPU defaults
-    ``fused_ff`` and ``fused_attn``); ``"rows"`` the eval forward
-    (``forward``, ``train`` must be False)."""
+    """MSE of the teacher-forced predictor.  ``layout="lanes"`` runs
+    ``forward_T`` (the JAX package's TPU defaults ``fused_ff`` and
+    ``fused_attn``), ``"rows"`` runs ``forward`` (in training JAX's
+    ``fused_ff=True``).  The two give the same loss at dropout 0."""
     lat = (latents - means_latent) / stds_latent
     lat_t = (latents_future - means_latent) / stds_latent
     enc_in = torch.cat((lat, disp_acc, heights), dim=-1)[:, :-1]
     dec_in = torch.cat((lat[:, -1:], lat_t[:, :-1]), dim=1)
     mask = tmodel.causal_mask(dec_in.shape[1], lat.device)
     if layout == "rows":
-        if train:
-            raise NotImplementedError("the port trains in the lanes layout")
-        out = tmodel.forward(tparams, param, enc_in, dec_in, mask)
+        out = tmodel.forward(tparams, param, enc_in, dec_in, mask,
+                             train=train, seeds=seeds)
         return ((out - lat_t) ** 2).mean()
     out_T = tmodel.forward_T(tparams, param, enc_in.permute(1, 2, 0),
                              dec_in.permute(1, 2, 0), mask, train=train,
@@ -122,21 +124,23 @@ def make_optimizer(tparams, param) -> torch.optim.Adam:
 
 
 def apply_step(tparams, optimizer, param, latents, latents_future, disp_acc,
-               heights, means_latent, stds_latent, seeds: Sequence[int]):
+               heights, means_latent, stds_latent, seeds: Sequence[int],
+               layout: str = "lanes"):
     """One Adam step on given latents and dropout seeds; returns the loss
     as a device scalar (no host sync)."""
     optimizer.zero_grad(set_to_none=True)
     loss = _teacher_forced_loss(
         tparams, param, latents, latents_future, disp_acc, heights,
-        means_latent, stds_latent, train=True, seeds=seeds)
+        means_latent, stds_latent, train=True, seeds=seeds, layout=layout)
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def make_train_step(vae_params, statics, param, optimizer):
+def make_train_step(vae_params, statics, param, optimizer,
+                    layout: str = "lanes"):
     """The training step: limb noise, one frozen-VAE encode of past+future,
-    then :func:`apply_step` on the lanes layout."""
+    then :func:`apply_step` in ``layout``."""
     prob = param["limbs_random_prob"]
 
     def step(tparams, host_gen, dev_gen, dqs_past, dqs_future, disp_acc,
@@ -151,7 +155,7 @@ def make_train_step(vae_params, statics, param, optimizer):
         seeds = hash_dropout.seeds_for(host_gen, N_SEEDS)
         return apply_step(tparams, optimizer, param, both[:, :p],
                           both[:, p:], disp_acc, heights, means_latent,
-                          stds_latent, seeds)
+                          stds_latent, seeds, layout)
 
     return step
 
@@ -240,11 +244,12 @@ def _assign(tparams, values) -> None:
 def train(data_dir: str, model_dir: str, param=None, *,
           epochs: int | None = None, load: bool = False,
           eval_window_step: int | None = None, seed: int | None = None,
-          log=print, device=None) -> Dict:
+          log=print, device=None, layout: str = "lanes") -> Dict:
     """Train on ``data_dir/train``, select on ``data_dir/eval``; writes
     ``temporal.npz`` (best eval loss) and ``temporal.last.npz`` (exact
     resume state) into ``model_dir``, which holds the generator.  Runs on
-    ``cuda`` unless ``device="cpu"``.  Returns ``{"params", "history",
+    ``cuda`` unless ``device="cpu"``, its steps in ``layout`` ("lanes" or
+    "rows").  Returns ``{"params", "history",
     "means_latent", "stds_latent"}``; each history entry has the epoch's
     losses, its steps and windows, and ``train_seconds`` (the steps, ended
     by the one host fetch of the losses)."""
@@ -301,7 +306,8 @@ def train(data_dir: str, model_dir: str, param=None, *,
     optimizer = make_optimizer(tparams, param)
     data = stage_dataset(data, dev)
     eval_data = stage_dataset(eval_data, dev)
-    train_step = make_train_step(vae_params, statics, param, optimizer)
+    train_step = make_train_step(vae_params, statics, param, optimizer,
+                                 layout)
     eval_step = make_eval_step(vae_params, statics, param)
     mean_dqs = torch.as_tensor(means["dqs"], device=dev)
     std_dqs = torch.as_tensor(stds["dqs"], device=dev)

@@ -7,7 +7,9 @@ at import.  On a GPU machine run them with::
     python -m pytest tests/test_torch_cuda.py -q
 
 They repeat, at small sizes, what ``chip_smoke.py`` checks at the main
-paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``).
+paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``):
+K1, K2, K3a/K3b (rows), K3c/K3d (lanes), K4a/K4b, and one training step
+of each layout on the card against the CPU.
 """
 
 import pytest
@@ -79,6 +81,16 @@ def test_k3_kernels_match_plain(engines, s, b, rate):
     assert r["ok"], r
 
 
+# M = s·b rows: 390 and 600 span ragged 256-row TPU tiles and 64-row CUDA
+# tiles; 17 is one partial tile; 7,680 splits the hidden over gridDim.y
+@pytest.mark.parametrize("s,b,rate", [(3, 130, 0.1), (2, 300, 0.1),
+                                      (2, 300, 0.0), (1, 17, 0.1),
+                                      (15, 512, 0.1)])
+def test_k3_rows_kernels_match_plain(engines, s, b, rate):
+    r = chip_smoke.check_k3(s, b, rate, timed=False, layout="rows")
+    assert r["ok"], r
+
+
 @pytest.mark.parametrize("sq,sk,b,causal", [(14, 14, 37, False),
                                             (15, 14, 130, False),
                                             (15, 15, 64, True),
@@ -100,6 +112,16 @@ def test_training_step_card_matches_cpu(engines, tmp_path, rate):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_rows_training_step_card_matches_cpu(engines, tmp_path, rate):
+    data = tmp_path / "data" / "train"
+    data.mkdir(parents=True)
+    chip_smoke.write_synthetic_clips(str(data), (300, 300), 3)
+    r = chip_smoke.train_step_card_vs_cpu(str(tmp_path / "data"), rate, B=8,
+                                          layout="rows")
+    assert r["ok"], r
+
+
 def test_k3_k4_reject_bad_input(engines):
     from dragposer_tpu_torch.ops import attn_fused, ff_fused
 
@@ -109,6 +131,13 @@ def test_k3_k4_reject_bad_input(engines):
         ff_fused.ff_dropout_lanes(x, {"w": w1, "b": torch.zeros(2048)},
                                   {"w": torch.zeros(48, 2048), "b":
                                    torch.zeros(48)}, 0.1, 1)
+    with pytest.raises(ValueError):
+        ff_fused.ff_dropout_seeded(torch.zeros(8, 40, device="cuda"),
+                                   {"w": torch.zeros(2048, 48, device="cuda"),
+                                    "b": torch.zeros(2048, device="cuda")},
+                                   {"w": torch.zeros(48, 2048, device="cuda"),
+                                    "b": torch.zeros(48, device="cuda")},
+                                   0.1, 1)
     q = torch.zeros(3, 4, 12, 8, device="cuda")
     with pytest.raises(ValueError):
         attn_fused.attn_core_lanes(q, q.cpu(), q)

@@ -28,11 +28,14 @@ def _imported(path):
 
 def test_sources_found():
     assert len(SOURCES) > 20
-    for name in ("iter_block", "temporal_forward", "ff_lanes", "attn_lanes"):
+    for name in ("iter_block", "temporal_forward", "ff_lanes", "ff_rows",
+                 "attn_lanes"):
         assert (ROOT / "dragposer_tpu_torch" / "csrc" / f"{name}.cu").exists()
     for module in ("ops/hash_dropout.py", "ops/ff_fused.py",
                    "ops/attn_fused.py", "train/temporal.py",
-                   "cli/train_temporal.py", "data/datasets.py"):
+                   "cli/train_temporal.py", "data/datasets.py",
+                   "train/vae.py", "cli/train_vae.py", "models/vae.py",
+                   "models/skeleton_nn.py", "export.py"):
         assert ROOT / "dragposer_tpu_torch" / module in SOURCES
 
 
