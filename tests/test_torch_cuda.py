@@ -57,6 +57,44 @@ def test_k2_kernel_matches_plain(engines, s_dec, kind):
     assert r["library_err"] < 1e-3, r
 
 
+# K2's lane grouping: G = lanes_per_block(S_enc, S_dec) lanes per block
+# (9 at S = 14, 8 at 16), so B = 1, G - 1 and G + 1 leave a ragged or lone
+# block; 37 is several blocks and a ragged one.
+@pytest.mark.parametrize("b", ["1", "G-1", "G+1", "37"])
+@pytest.mark.parametrize("s_dec,kind", [(1, "row"), (5, "square"),
+                                        (16, "row")])
+def test_k2_lane_grouping_matches_plain(engines, b, s_dec, kind):
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    G = temporal_fused.lanes_per_block(14, s_dec)
+    B = {"1": 1, "G-1": G - 1, "G+1": G + 1, "37": 37}[b]
+    r = chip_smoke.check_k2(engines[0], B, s_dec, kind, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("s_dec,kind", [(1, "row"), (16, "square")])
+def test_k2_longest_encoder_matches_plain(engines, s_dec, kind):
+    r = chip_smoke.check_k2(engines[0], 37, s_dec, kind, timed=False,
+                            s_enc=16)
+    assert r["ok"], r
+
+
+def test_k2_lanes_per_block_matches_kernel(engines):
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    lib = temporal_fused._library()
+    for s_enc in range(1, 17):
+        for s_dec in range(1, 17):
+            assert lib.temporal_forward_lanes_per_block(s_enc, s_dec) == \
+                temporal_fused.lanes_per_block(s_enc, s_dec)
+
+
+def test_k2_tolerance_refuses_tf32_control(engines):
+    r = chip_smoke.check_k2(engines[0], 512, 5, "row", timed=False,
+                            control=True)
+    assert r["tf32_control_refused"] and r["ok"], r
+
+
 def test_main_path_card_matches_cpu(engines):
     gpu, cpu, bvh, means, stds = engines
     r = chip_smoke.check_against_cpu(gpu, cpu, bvh, means, stds)
