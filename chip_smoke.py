@@ -8,16 +8,25 @@ printing its own line (any failure exits nonzero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five kernel sources from ``dragposer_tpu_torch/csrc``
    (one ``nvcc`` each, all started together), and count the tensor-core
-   instructions (``HMMA``/``HGMMA``) in K2's SASS (0 fails);
-3. K1 (drag-iteration block) against its plain twin on the card;
+   instructions (``HMMA``/``HGMMA``) in K1's and K2's SASS (0 fails);
+3. K1 (drag-iteration block, 3xTF32 on the tensor cores) against its
+   plain twin on the card, the carry and the aux, with a control at
+   sync_k = 1 that must fail the same tolerance (K1's products in one
+   TF32 pass); K1 timed by its own device time, with the wrapper's device
+   time and CUDA events around a call beside it, and its timed build's
+   clock cycles by phase;
 4. K2 (temporal-transformer forward, 3xTF32 on the tensor cores) against
    its float32 plain twin, with a control that must fail the same
    tolerance (the twin with TF32 matmuls), and ``torch.nn.Transformer``
    timed beside it as a yardstick only, with TF32 off and on;
 5. the serving path: ``build_engine`` on ``models/model_dancedb_example``
    with the 6-tracker config, then ``DragEngine.run_batch_pipelined`` on
-   B = 8192 lanes × 240 frames of synthetic motion, with both kernels'
-   launch counts (plain counts must stay 0); the device time of its first
+   B = 8192 lanes × 240 frames of synthetic motion (mean iterations, lane
+   0's MPJPE and the mean of the first 64 lanes' held to the recorded
+   results), with both kernels'
+   launch counts (plain counts and K1's aux rebuilds must stay 0) and
+   K1's tile efficiency (lane-steps taken over those its 16-lane tiles
+   issue, each running to its slowest lane); the device time of its first
    frames by kernel under ``torch.profiler``, with K1's and K2's launches
    in that window (device ms per launch); a small run held against the
    same path on the CPU (plain twins) in lockstep at one Adam step a frame
@@ -205,13 +214,14 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_flops_per_lane_step(J: int, L: int, H1: int, H2: int) -> int:
+def k1_flops_split(J: int, L: int, H1: int, H2: int) -> tuple:
     """Operations of one drag step for one lane, counted from the code:
-    the decoder forward and its transposed backward (2 FLOP per
-    multiply-add each), ~350 per joint for quaternions, FK, the loss and
-    their reverse, and ~15 per latent dim for the loss term and Adam."""
+    the decoder forward and its transposed backward, 2 FLOP per
+    multiply-add (K1's tensor-core work), and the rest on CUDA cores: ~350
+    per joint for quaternions, FK, the loss and their reverse, ~15 per
+    latent dim for the loss term and Adam."""
     macs = L * H1 + H1 * H2 + H2 * (4 * J + 3)
-    return 2 * 2 * macs + 350 * J + 15 * L
+    return 2 * 2 * macs, 350 * J + 15 * L
 
 
 def k2_flops_split(s_enc: int, s_dec: int, d=48, ff=2048, heads=4,
@@ -275,11 +285,79 @@ def k1_inputs(engine, B: int, seed: int = 0, per_lane: bool = False):
     return ctx, kctx, opt, active, State, tposT, trotT, tlat
 
 
+K1_OPT = ("latent", "m", "v", "decoded_latent", "prev_loss", "loss_pos",
+          "loss_rot", "loss_incr")
+K1_AUX = ("loss_pos", "loss_rot", "world_displacement", "displacement",
+          "world_rotation", "positions", "pose")
+
+
+def k1_agreement(got, ref, B: int, sync_k: int, pose_std=None) -> dict:
+    """K1_TOL per lane over the carry and every aux field.  Lanes whose
+    iteration count differs (a stop-rule knife edge flipped by
+    reassociation) are counted and left out of the value comparison.
+
+    With ``pose_std`` (the quat stds in the pose's order, 4J), the pose is
+    held as pose · std = u − mean, the unit quaternions' offsets: the
+    normalized pose divides them by stds as small as ~6e-4, so one ulp of
+    a quaternion component moves it by ~1e-4, and two float32 evaluations
+    of the plain twin (on the card and on the CPU) already differ there by
+    more than K1_TOL.  The raw pose's error is reported beside it."""
+    import torch
+
+    same_t = got.t == ref.t
+    atol = K1_TOL["atol_per_step"] * sync_k
+    over = torch.zeros_like(same_t)
+    worst = {"opt": 0.0, "aux": 0.0}
+    pose_raw = (got.aux.pose - ref.aux.pose).abs()
+    scaled = {} if pose_std is None else {
+        "pose": (got.aux.pose * pose_std, ref.aux.pose * pose_std)}
+    pairs = ([("opt", getattr(got, n), getattr(ref, n)) for n in K1_OPT]
+             + [("aux", *scaled.get(n, (getattr(got.aux, n),
+                                        getattr(ref.aux, n))))
+                for n in K1_AUX])
+    # the carry's losses start at +inf: only the latent and the aux must
+    # be finite
+    finite = bool(torch.isfinite(got.latent).all())
+    by_field = {}
+    for (kind, a, b), name in zip(pairs, K1_OPT + K1_AUX):
+        err = (a - b).abs()
+        bad = ~((a == b) | (err <= atol + K1_TOL["rtol"] * b.abs()))
+        lanes = bad.reshape(B, -1).any(dim=1)
+        over |= lanes
+        if bool((lanes & same_t).any()):
+            by_field[f"{kind}.{name}"] = int((lanes & same_t).sum())
+        if kind == "aux":
+            finite = finite and bool(torch.isfinite(a).all())
+        if bool(same_t.any()):
+            worst[kind] = max(worst[kind], float(
+                err.reshape(B, -1)[same_t].max()))
+    # sync_k = 1: every lane within the tolerance.  Over many steps Adam's
+    # sign-like first-moment normalization lets a few lanes' ulp-level
+    # differences grow chaotically; a formula error would show in every
+    # lane at sync_k = 1, so longer blocks allow 0.1% of lanes over the
+    # tolerance and cap the worst latent error at 1e-2.
+    n_over = int((over & same_t).sum())
+    allowed = 0 if sync_k == 1 else B // 1000
+    latent_err = float((got.latent - ref.latent).abs()[same_t].max()) \
+        if bool(same_t.any()) else 0.0
+    return {"max_abs_err": latent_err, "opt_max_abs_err": worst["opt"],
+            "aux_max_abs_err": worst["aux"],
+            "pose_raw_max_abs_err": float(pose_raw.max()),
+            "t_mismatch": int((~same_t).sum()), "lanes_over_tol": n_over,
+            "lanes_over_tol_by_field": by_field,
+            "ok": n_over <= allowed and latent_err <= 1e-2 and finite}
+
+
 def check_k1(engine, B: int, sync_k: int, per_lane: bool = False,
-             reps: int = 5, timed: bool = True) -> dict:
-    """K1 against its plain twin on the card.  Lanes whose iteration count
-    differs (a stop-rule knife edge flipped by reassociation) are counted
-    and left out of the value comparison."""
+             reps: int = 5, timed: bool = True, control: bool = False,
+             calls: int = 20) -> dict:
+    """K1 against its plain twin on the card, the carry and the aux.  With
+    ``control``, K1 with its products in one TF32 pass must fail the same
+    check, or the check fails: K1_TOL has to tell 3xTF32 from TF32.
+    Timed: ``ms`` is K1's own device time per call (the profiler's self
+    time of ``iter_block_kernel`` over ``calls`` calls), beside the
+    wrapper's device time per call and CUDA events around a call (which
+    also time the host between launches)."""
     import torch
 
     from dragposer_tpu_torch.drag import fast_iter, iter_kernel
@@ -287,51 +365,85 @@ def check_k1(engine, B: int, sync_k: int, per_lane: bool = False,
     ctx, kctx, opt, active, state, tposT, trotT, tlat = k1_inputs(
         engine, B, per_lane=per_lane)
     hyper = engine.hyper
+    args = (opt, active, state, tposT, trotT, tlat)
     run_k = lambda: iter_kernel.run_block_fused(  # noqa: E731
-        ctx, kctx, hyper, sync_k, opt, active, state, tposT, trotT, tlat)
+        ctx, kctx, hyper, sync_k, *args)
     run_p = lambda: fast_iter.run_block(  # noqa: E731
-        ctx, hyper, sync_k, opt, active, state, tposT, trotT, tlat)
+        ctx, hyper, sync_k, *args)
     got, ref = run_k(), run_p()
     torch.cuda.synchronize()
-    same_t = got.t == ref.t
-    atol = K1_TOL["atol_per_step"] * sync_k
-    over = torch.zeros_like(same_t)
-    worst = 0.0
-    for name in ("latent", "m", "v", "decoded_latent", "prev_loss",
-                 "loss_pos", "loss_rot", "loss_incr"):
-        a, b = getattr(got, name), getattr(ref, name)
-        err = (a - b).abs()
-        bad = ~((a == b) | (err <= atol + K1_TOL["rtol"] * b.abs()))
-        over |= bad.reshape(B, -1).any(dim=1)
-        if name == "latent":
-            worst = float(err[same_t].max())
-    n_over = int((over & same_t).sum())
-    # sync_k = 1: every lane within the tolerance.  Over many steps Adam's
-    # sign-like first-moment normalization lets a few lanes' ulp-level
-    # differences grow chaotically; a formula error would show in every
-    # lane at sync_k = 1, so longer blocks allow 0.1% of lanes over the
-    # tolerance and cap the worst latent error at 1e-2.
-    allowed = 0 if sync_k == 1 else B // 1000
-    steps = int((got.t - opt.t).sum())
-    res = {"max_abs_err": worst, "t_mismatch": int((~same_t).sum()),
-           "lanes_over_tol": n_over,
-           "ok": (n_over <= allowed and worst <= 1e-2
-                  and bool(torch.isfinite(got.latent).all())),
-           "steps": steps}
+    pose_std = kctx.sq.T.reshape(-1)
+    res = k1_agreement(got, ref, B, sync_k, pose_std)
+    res["steps"] = int((got.t - opt.t).sum())
+    if control:
+        tf32 = iter_kernel.run_block_tf32(ctx, kctx, hyper, sync_k, *args)
+        torch.cuda.synchronize()
+        c = k1_agreement(tf32, ref, B, sync_k, pose_std)
+        res["tf32_control"] = {k: c[k] for k in (
+            "max_abs_err", "opt_max_abs_err", "aux_max_abs_err",
+            "lanes_over_tol")}
+        res["tf32_control_refused"] = not c["ok"]
+        res["ok"] = res["ok"] and res["tf32_control_refused"]
     if timed:
-        res["ms"] = cuda_ms(run_k, reps)
-        res["plain_ms"] = cuda_ms(run_p, max(2, reps // 2))
+        run_k()
+        prof = profile_device_time(lambda: [run_k() for _ in range(calls)],
+                                   {"K1": "iter_block_kernel"})
+        res["ms"] = prof["device_ms"]["K1"] / calls
+        res["wrapper_device_ms"] = prof["device_busy_ms"] / calls
+        res["event_ms"] = cuda_ms(run_k, reps)
+        res["plain_ms"] = device_ms(run_p, calls=2)
         L = opt.latent.shape[1]
         # each input read once, each output written once: z, m, v, decoded,
         # target latent (in) and z, m, v, decoded (out); 5 scalars in and
-        # out; the lane flag; global rotation and the targets
-        nbytes = 4 * B * (9 * L + 10 + 4) + B + 4 * (tposT.numel()
-                                                     + trotT.numel())
+        # out; the lane flag; global rotation and the targets; the aux
+        # (4J pose, 3J positions, 3 + 3 + 4 + 2 of the root and losses)
         J = engine.skeleton.n_joints
-        flops = steps * k1_flops_per_lane_step(J, L, kctx.W1.shape[0],
-                                               kctx.W2.shape[0])
-        res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes)
+        nbytes = 4 * B * (9 * L + 10 + 4 + 7 * J + 12) + B + 4 * (
+            tposT.numel() + trotT.numel())
+        products, rest = k1_flops_split(J, L, kctx.W1.shape[0],
+                                        kctx.W2.shape[0])
+        steps = res["steps"]
+        # the products in 3 TF32 passes on the tensor cores, the rest on
+        # CUDA cores; the two units run concurrently, so the larger bounds
+        t_ops = max(3 * steps * products / TF32_PEAK, steps * rest / F32_PEAK)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        res["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        res["bound_f32_cuda_core_ms"] = bound_ms(
+            steps * (products + rest), nbytes)[0]
     return res
+
+
+def k1_twin_card_vs_cpu(engine, B: int, sync_k: int = 1) -> dict:
+    """K1's plain twin on the card against the same twin on the CPU, on
+    check_k1's inputs: the carry and the aux with the raw pose, and with
+    the pose as pose · std (``k1_agreement``) — how far two float32
+    evaluations of the reference already differ."""
+    import torch
+
+    from dragposer_tpu_torch.drag import fast_iter
+
+    ctx, kctx, opt, active, state, tposT, trotT, tlat = k1_inputs(engine, B)
+
+    def cpu(x):
+        if isinstance(x, tuple):
+            return type(x)(*[cpu(y) for y in x])
+        return x.cpu() if torch.is_tensor(x) else x
+
+    class CpuState:
+        global_rot = state.global_rot.cpu()
+
+    card = fast_iter.run_block(ctx, engine.hyper, sync_k, opt, active, state,
+                               tposT, trotT, tlat)
+    host = fast_iter.run_block(cpu(ctx), engine.hyper, sync_k, cpu(opt),
+                               active.cpu(), CpuState, tposT.cpu(),
+                               trotT.cpu(), tlat.cpu())
+    card = cpu(card)
+    keys = ("lanes_over_tol", "lanes_over_tol_by_field", "aux_max_abs_err")
+    raw = k1_agreement(card, host, B, sync_k)
+    scaled = k1_agreement(card, host, B, sync_k, kctx.sq.T.reshape(-1).cpu())
+    return {"raw_pose": {k: raw[k] for k in keys},
+            "pose_times_std": {k: scaled[k] for k in keys}}
 
 
 def _library_transformer(tparams, device):
@@ -787,6 +899,13 @@ FIVE_STEPS_FACTOR = 2.0
 # K2's 3xTF32 must leave them within 1e-4 m and 1%
 MAIN_MPJPE_M = 0.019117
 MAIN_MEAN_ITERATIONS = 9.689
+# and the mean MPJPE of the first 64 lanes with K1's first, float32 design
+# (its chip run in this tree's parent/change comparison), within 1e-4 m: a
+# single lane follows the stop rule's knife edges (K1's plain twin with its
+# products in 3xTF32 moves lane 0 by 1.1e-4 m, the mean of 64 by 7e-6,
+# ``k1_mpjpe_sensitivity``), the mean of many does not
+MAIN_MPJPE_LANES = 64
+MAIN_MEAN_MPJPE_M = 0.02056798
 
 
 def load_clip(n_frames: int, seed: int):
@@ -826,16 +945,25 @@ def lane_batch(engine, bvh, means, stds, B: int, T: int):
     return states, dqs, gp, gr
 
 
-def lane0_mpjpe(out, bvh, means, stds, skeleton, T: int) -> float:
-    """MPJPE of lane 0 (which starts at frame 0) against the clip."""
+def lane_mpjpe(out, bvh, means, stds, skeleton, T: int, lane: int = 0
+               ) -> float:
+    """MPJPE of one lane against the clip: lane i starts at frame i and
+    wraps at T (``lane_batch``)."""
     from dragposer_tpu_torch import export, metrics
 
-    rec = export.result_to_bvh(out.pose[0].cpu().numpy(), means, stds, bvh,
-                               skeleton,
-                               global_pos=out.global_pos[0].cpu().numpy())
+    rec = export.result_to_bvh(out.pose[lane].cpu().numpy(), means, stds,
+                               bvh, skeleton,
+                               global_pos=out.global_pos[lane].cpu().numpy())
     gt = copy.deepcopy(bvh)
-    gt.rotations, gt.positions = bvh.rotations[:T], bvh.positions[:T]
+    frames = (np.arange(T) + lane) % T
+    gt.rotations, gt.positions = bvh.rotations[frames], bvh.positions[frames]
     return metrics.positional_error(gt, rec)[0]
+
+
+def mean_mpjpe(out, bvh, means, stds, skeleton, T: int) -> float:
+    """Mean MPJPE of the first ``MAIN_MPJPE_LANES`` lanes."""
+    return float(np.mean([lane_mpjpe(out, bvh, means, stds, skeleton, T, i)
+                          for i in range(MAIN_MPJPE_LANES)]))
 
 
 @contextlib.contextmanager
@@ -926,6 +1054,46 @@ def check_against_cpu(gpu_engine, cpu_engine, bvh, means, stds, B=8, T=24):
     return res
 
 
+@contextlib.contextmanager
+def k1_steps_recorded():
+    """While inside, every ``iter_kernel.run_block_fused`` call records its
+    lanes' steps (``t`` after minus ``t`` before, on the device, no sync)
+    into the yielded list."""
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    steps = []
+    run = iter_kernel.run_block_fused
+
+    def recording(ctx, kctx, hyper, sync_k, opt, *rest):
+        out = run(ctx, kctx, hyper, sync_k, opt, *rest)
+        steps.append(out.t - opt.t)
+        return out
+
+    iter_kernel.run_block_fused = recording
+    try:
+        yield steps
+    finally:
+        iter_kernel.run_block_fused = run
+
+
+def tile_efficiency(steps, tile: int) -> dict:
+    """Lane-steps taken over lane-steps issued when each tile of ``tile``
+    consecutive lanes runs to its slowest lane, over the recorded
+    launches."""
+    import torch
+
+    taken = issued = 0
+    for s in steps:
+        B = s.shape[0]
+        pad = torch.zeros(-B % tile, dtype=s.dtype, device=s.device)
+        per_tile = torch.cat((s, pad)).reshape(-1, tile)
+        taken += int(s.sum())
+        issued += int(per_tile.max(dim=1).values.sum()) * tile
+    return {"tile_lanes": tile, "launches": len(steps),
+            "lane_steps": taken, "issued_lane_steps": issued,
+            "efficiency": taken / issued if issued else None}
+
+
 def profile_main_path(engine, states, dqs, gp, gr, T: int) -> dict:
     """Where the device time of the main path goes: the first ``T`` frames
     of the same batch under ``torch.profiler``, device time summed by
@@ -948,6 +1116,119 @@ def profile_main_path(engine, states, dqs, gp, gr, T: int) -> dict:
                   for k, n in launches.items()}
     return {"T": T, **res, "launches": launches,
             "device_ms_per_launch": per_launch}
+
+
+@contextlib.contextmanager
+def k1_plain(mm=None):
+    """``iter_kernel.run_block_fused`` replaced by K1's plain twin inside
+    the block, its decoder products formed by ``mm(a, b)`` (differentiable)
+    if given, else by float32 matmuls."""
+    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+    from dragposer_tpu_torch.models import skeleton_nn
+
+    run, forward = iter_kernel.run_block_fused, fast_iter.forward_T
+
+    def twin(ctx, kctx, hyper, sync_k, opt, *rest):
+        return fast_iter.run_block(ctx, hyper, sync_k, opt, *rest)
+
+    def forward_mm(ctx, hyper, zT, *rest):
+        h = skeleton_nn.leaky_relu(mm(ctx.W1, zT) + ctx.b1)
+        h = skeleton_nn.leaky_relu(mm(ctx.W2, h) + ctx.b2)
+        h = mm(ctx.W3p, h) + ctx.b3p
+        return fast_iter.loss_from_decoded(ctx, hyper, h, zT, *rest)
+
+    iter_kernel.run_block_fused = twin
+    if mm is not None:
+        fast_iter.forward_T = forward_mm
+    try:
+        yield
+    finally:
+        iter_kernel.run_block_fused, fast_iter.forward_T = run, forward
+
+
+def matmul_3xtf32_grad(a, b):
+    """a @ b as 3xTF32 (``temporal_fused.matmul_3xtf32``), its gradients
+    formed the same way."""
+    import torch
+
+    from dragposer_tpu_torch.ops.temporal_fused import matmul_3xtf32
+
+    class Product(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, y):
+            ctx.save_for_backward(x, y)
+            return matmul_3xtf32(x, y)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y = ctx.saved_tensors
+            return matmul_3xtf32(g, y.T), matmul_3xtf32(x.T, g)
+
+    return Product.apply(a, b)
+
+
+def main_path_results(engine, bvh, means, stds, skeleton, B: int = B_MAIN,
+                      T: int = T_MAIN) -> dict:
+    """The main path's results: mean iterations, lane 0's MPJPE and the
+    mean of the first ``MAIN_MPJPE_LANES`` lanes."""
+    import torch
+
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T)
+    _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    torch.cuda.synchronize()
+    return {"mean_iterations": float(out.iterations.float().mean()),
+            "lane0_mpjpe_m": lane_mpjpe(out, bvh, means, stds, skeleton, T),
+            f"mean_mpjpe_m_first_{MAIN_MPJPE_LANES}_lanes": mean_mpjpe(
+                out, bvh, means, stds, skeleton, T)}
+
+
+def k1_mpjpe_sensitivity(engine, bvh, means, stds, skeleton) -> dict:
+    """The main path's results with K1, with its plain twin in float32, and
+    with the twin's decoder products in 3xTF32: how far a change of K1's
+    rounding alone moves lane 0 and the mean of many lanes."""
+    res = {"kernel": main_path_results(engine, bvh, means, stds, skeleton)}
+    for name, mm in (("twin_float32", None),
+                     ("twin_3xtf32", matmul_3xtf32_grad)):
+        with k1_plain(mm):
+            res[name] = main_path_results(engine, bvh, means, stds, skeleton)
+    return res
+
+
+def k1_figures(B: int = B_MAIN) -> dict:
+    """K1's numbers for a parent/change comparison, from whatever
+    ``dragposer_tpu_torch`` is first on the path: the card, K1 alone at
+    B, sync_k = 24 (``check_k1``), its device ms per launch in the
+    profiled first frames of the main path with the 16-lane tile
+    efficiency of those launches, and the main path's results."""
+    import torch
+
+    from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    bvh = load_clip(T_MAIN, SEED)
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    skeleton = Skeleton.build(parents, offsets, bvh.names)
+    engine, means, stds = build_engine(MODEL_DIR, parents,
+                                       resolve_config("6_trackers"),
+                                       skeleton=skeleton)
+    res = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), "clocks": [gpu_clocks()]}
+    res["isolated"] = check_k1(engine, B, SYNC_K)
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T_MAIN)
+    torch.cuda.synchronize()
+    with k1_steps_recorded() as steps:
+        prof = profile_main_path(engine, states, dqs, gp, gr, T_PROFILE)
+    res["main_path_profile"] = {k: prof[k] for k in (
+        "T", "wall_ms", "device_ms", "device_busy_ms", "launches",
+        "device_ms_per_launch")}
+    res["tile_efficiency"] = tile_efficiency(steps, 16)
+    res["main_path"] = main_path_results(engine, bvh, means, stds, skeleton,
+                                         B)
+    res["clocks"].append(gpu_clocks())
+    return res
 
 
 def profile_device_time(fn, kernels: dict) -> dict:
@@ -1610,7 +1891,7 @@ def close_the_loop(model_dir: str, bvh, B: int = 64, T: int = 48) -> dict:
               and bool(torch.isfinite(out.global_pos).all()))
     return {"B": B, "T": T, "seconds": seconds, "launches": launches,
             "mean_iterations": float(out.iterations.float().mean()),
-            "lane0_mpjpe_m": lane0_mpjpe(out, bvh, means, stds, skeleton, T),
+            "lane0_mpjpe_m": lane_mpjpe(out, bvh, means, stds, skeleton, T),
             "ok": (finite and launches["K1"] > 0 and launches["K2"] > 0
                    and not launches["K1_plain"]
                    and not launches["K2_plain"])}
@@ -1701,7 +1982,7 @@ def main() -> int:
     from dragposer_tpu_torch._device import resolve_device
     from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
     from dragposer_tpu_torch.data import encoding
-    from dragposer_tpu_torch.drag import fast_iter
+    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
     from dragposer_tpu_torch.ops import temporal_fused
     from dragposer_tpu_torch.ops.topology import Skeleton
 
@@ -1714,11 +1995,12 @@ def main() -> int:
     print(f"[2] built {', '.join(n + '.cu' for n in sources)} in "
           f"{logs['_seconds']} s (nvcc -arch sm_90a); ptxas: "
           + " | ".join(ptx), flush=True)
-    k2_mma = sass_mma_count("temporal_forward")
-    print(f"[2] K2 SASS (cuobjdump -sass): {k2_mma} HMMA/HGMMA "
-          "instructions", flush=True)
-    if k2_mma == 0:
-        fail("K2's SASS has no tensor-core instruction")
+    for name, source in (("K1", "iter_block"), ("K2", "temporal_forward")):
+        n_mma = sass_mma_count(source)
+        print(f"[2] {name} SASS (cuobjdump -sass): {n_mma} HMMA/HGMMA "
+              "instructions", flush=True)
+        if n_mma == 0:
+            fail(f"{name}'s SASS has no tensor-core instruction")
     bvh = load_clip(T_MAIN, SEED)
     _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
     skeleton = Skeleton.build(parents, offsets, bvh.names)
@@ -1731,16 +2013,27 @@ def main() -> int:
                              (SYNC_K, False)):
         main_shape = sync_k == SYNC_K and not per_lane
         clocks = gpu_clocks()
+        control = sync_k == 1 and not per_lane
         r = check_k1(engine, B_MAIN, sync_k, per_lane=per_lane,
-                     timed=main_shape)
+                     timed=main_shape, control=control)
         if main_shape:
             r["clocks_sm_mem"] = [clocks, gpu_clocks()]
         print(f"[3] K1 B={B_MAIN} sync_k={sync_k} per_lane={per_lane}: "
               + json.dumps(r), flush=True)
+        if control and not r["tf32_control_refused"]:
+            fail(f"K1_TOL passes K1 with its products in one TF32 pass: {r}")
         if not r["ok"] or r["t_mismatch"] > B_MAIN // 1000:
             fail(f"K1 disagrees with its plain twin: {r}")
         if main_shape:
             k1_main = r
+    print(f"[3] K1's plain twin on the card vs on the CPU, B={B_MAIN} "
+          "sync_k=1 (K1_TOL on the raw pose and on pose · std): "
+          + json.dumps(k1_twin_card_vs_cpu(engine, B_MAIN)), flush=True)
+    args = k1_inputs(engine, B_MAIN)
+    phases = iter_kernel.phase_cycles(args[0], args[1], engine.hyper, SYNC_K,
+                                      *args[2:])
+    print(f"[3] K1 B={B_MAIN} sync_k={SYNC_K}, its timed build (SM clock "
+          "cycles per warp-step by phase): " + json.dumps(phases), flush=True)
 
     k2_main = None
     for s_dec, kind in ((5, "row"), (5, "square"), (1, "row")):
@@ -1771,24 +2064,32 @@ def main() -> int:
         c.reset()
     clocks = [gpu_clocks()]
     t0 = time.time()
-    _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    with k1_steps_recorded() as k1_steps:
+        _, out = engine.run_batch_pipelined(states, dqs, gp, gr,
+                                            sync_k=SYNC_K)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     clocks.append(gpu_clocks())
     launches = {"K1": fast_iter.COUNTS.kernel,
                 "K2": temporal_fused.COUNTS.kernel,
                 "K1_plain": fast_iter.COUNTS.plain,
+                "K1_aux_rebuilds": fast_iter.COUNTS.aux,
                 "K2_plain": temporal_fused.COUNTS.plain}
+    tiles = tile_efficiency(k1_steps, iter_kernel.TILE_LANES)
     shapes_ok = (tuple(out.pose.shape) == (B_MAIN, T_MAIN, 88)
                  and bool(torch.isfinite(out.pose).all())
                  and bool(torch.isfinite(out.global_pos).all())
                  and int(out.iterations.min()) >= 1)
-    mpjpe = lane0_mpjpe(out, bvh, means, stds, skeleton, T_MAIN)
+    mpjpe = lane_mpjpe(out, bvh, means, stds, skeleton, T_MAIN)
+    mpjpe_mean = mean_mpjpe(out, bvh, means, stds, skeleton, T_MAIN)
     main_res = {"B": B_MAIN, "T": T_MAIN, "sync_k": SYNC_K,
                 "seconds": seconds,
                 "frames_per_s": B_MAIN * T_MAIN / seconds,
                 "mean_iterations": float(out.iterations.float().mean()),
-                "lane0_mpjpe_m": mpjpe, "launches": launches,
+                "lane0_mpjpe_m": mpjpe,
+                f"mean_mpjpe_m_first_{MAIN_MPJPE_LANES}_lanes": mpjpe_mean,
+                "launches": launches,
+                "k1_tile_efficiency": tiles,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "clocks_sm_mem": clocks}
     print("[5] main path 6_trackers, model_dancedb_example: "
@@ -1797,11 +2098,13 @@ def main() -> int:
         fail("main path output has the wrong shape or non-finite values")
     if launches["K1"] == 0 or launches["K2"] == 0:
         fail(f"a kernel of the main path never launched: {launches}")
-    if launches["K1_plain"] or launches["K2_plain"]:
-        fail(f"a plain twin ran on the main path: {launches}")
+    if launches["K1_plain"] or launches["K2_plain"] or \
+            launches["K1_aux_rebuilds"]:
+        fail(f"plain code of a kernel ran on the main path: {launches}")
     if not mpjpe < 0.2:
         fail(f"lane-0 MPJPE {mpjpe} m is not a reconstruction")
-    if (abs(mpjpe - MAIN_MPJPE_M) > 1e-4 or abs(
+    if (abs(mpjpe - MAIN_MPJPE_M) > 1e-4
+            or abs(mpjpe_mean - MAIN_MEAN_MPJPE_M) > 1e-4 or abs(
             main_res["mean_iterations"] - MAIN_MEAN_ITERATIONS)
             > 0.01 * MAIN_MEAN_ITERATIONS):
         fail(f"the main path's results moved: {main_res}")
@@ -1922,7 +2225,11 @@ def main() -> int:
          "launches": launches["K1"], "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "wrapper_device_ms": k1_main["wrapper_device_ms"],
+         "event_ms": k1_main["event_ms"],
+         "bound_f32_cuda_core_ms": k1_main["bound_f32_cuda_core_ms"],
+         "tile_efficiency": tiles["efficiency"]},
         {"name": "K2 temporal-transformer forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/temporal_forward.cu",
          "replaces": "dragposer_tpu/ops/temporal_fused.py:248",

@@ -1,70 +1,103 @@
 // K1: the drag-iteration block — sync_k masked Adam steps of the drag loss
-// for every lane, gradient written by hand.
+// for every lane, the gradient written by hand, and the aux of each lane's
+// last forward written by the kernel.
 //
 // Replaces the TPU kernel dragposer_tpu/drag/iter_kernel.py:run_block_fused
 // (pallas_call at iter_kernel.py:349, body _kernel and _forward).  It computes
 // the same formulas, masked bookkeeping and stop rule as
-// dragposer_tpu/drag/fast_iter.py:run_block (:312-342): per step the folded
-// decoder (3 matmuls, LeakyReLU 0.2), quat de-normalization and x/|x|, the
-// world root and joint quaternions, the displacement rotation, FK over the
-// parent chain, the 3-term loss (weighted position MSE, 9-plane
-// rotation-matrix MSE, temporal latent MSE), its gradient, and Adam with
-// bias correction.  The TPU kernel took its gradient with jax.vjp inside the
-// kernel; here the backward is the hand-written reverse of each stage.
+// dragposer_tpu/drag/fast_iter.py:run_block: per step the folded decoder
+// (3 products, LeakyReLU 0.2), quat de-normalization and x/|x|, the world
+// root and joint quaternions, the displacement rotation, FK over the parent
+// chain, the 3-term loss (weighted position MSE, 9-plane rotation-matrix
+// MSE, temporal latent MSE), its gradient, and Adam with bias correction.
+// The TPU kernel took its gradient with jax.vjp inside the kernel and left
+// the aux to XLA; here the backward is the hand-written reverse of each
+// stage, and the aux (losses, root displacement and rotation, positions,
+// normalized pose) comes from each lane's last forward, which is evaluated
+// at the decoded latent.  A lane that takes no step gets one forward at its
+// decoded latent.
 //
-// What bounds it on the H100: arithmetic and instruction issue.  One step is
-// ~70 kFLOP per lane (the decoder and its transpose are ~36 kFLOP of it) on
-// ~100 floats of state, so nothing needs device memory inside the loop: the
-// block reads its lanes' inputs once and writes the final state once.
+// What bounds it on the H100: operations.  One step is 43 kFLOP per lane,
+// 35 kFLOP of it the decoder and its transpose, on ~100 floats of state, so
+// nothing needs device memory inside the loop.  On CUDA cores, with a
+// weight and an activation read from shared memory for every multiply-add,
+// the products alone take ~1,300 shared loads per lane-step.
 //
-// What the design does about it: one warp per lane and a loop over the
-// sync_k steps inside the kernel (the TPU's sequential k grid axis).  The
-// decoder weights (W1 40x24, W2 60x40, W3 91x60, ~37 KB) sit in shared
-// memory with odd row strides, so both the forward (threads over output
-// rows) and the transposed backward (threads over input columns) read them
-// without bank conflicts.  The joints map to the warp's threads; the
-// one-hot parent matrix P and the ancestor matrix A of the TPU kernel become
-// a walk up the parent chain (forward) and a reverse-topological subtree
-// sum (backward) — the same function, reassociated.  A lane whose stop rule
-// holds leaves the loop and does not move.  Float32 throughout, IEEE sqrt
-// and division (no fast-math).
+// What the design does about it:
+// - Lanes in tiles, as the TPU kernel put them on its 128-wide vector axis:
+//   a tile of 16 lanes is the M of mma.sync.m16n8k8, and the decoder
+//   (24 → 40 → 60 → 91) and its transpose (91 → 60 → 40 → 24) run as
+//   tensor-core products in 3xTF32 (x = hi + lo; x·w ≈ lo·hi + hi·lo +
+//   hi·hi in float32), as K2 does (csrc/temporal_forward.cu).  A product's
+//   accumulator fragment (row g, columns 2t, 2t+1) is the next product's A
+//   fragment (columns t, t+4) once the contraction index is numbered so
+//   that column t is feature 2t and t+4 is 2t+1.
+// - A team of 4 warps shares a tile: 8192 lanes make only 512 tiles, one
+//   warp per SM sub-partition if a warp owned a tile, and every phase of
+//   the step would wait out its own latency.  With 4 warps a tile, 4
+//   tiles a block and a block an SM, each sub-partition interleaves 4
+//   warps.  Each product is split by output tile (tile n to warp n % 4);
+//   the activations pass through shared memory in the accumulator layout,
+//   and the team meets at a named barrier of its own between the stages.
+// - State that lives through the launch (latent, decoded latent, Adam's
+//   moments, target latent) and the per-joint buffers sit in shared
+//   memory: 512 threads a block leave 128 registers a thread, and spilled
+//   registers would come back from L2 (L1 is small beside ~221 KB of
+//   shared memory).
+// - The weights are split once, on the host (drag/iter_kernel.py:
+//   pack_fragments), padded to the tile, and held in shared memory once per
+//   block (~77 KB hi + lo) in fragment order: the forward reads a float4
+//   {hi, lo of feature 2t; hi, lo of 2t+1} per product, the transposed
+//   backward a float2 {hi, lo} per operand from the same copy.  Fragments
+//   are swizzled (position f ^ 2·(f >> 3)) so that both reads are free of
+//   bank conflicts.
+// - The per-joint stage runs over (lane, joint) pairs: thread th of the
+//   team serves lane th & 15 and joints th >> 4, + 8, ...: 2–3 pairs a
+//   thread at J = 22.  A joint's world rotation depends only on the root
+//   (world = W ⊗ u_j); positions are ancestor sums and the backward's
+//   position gradients descendant sums of per-joint terms, taken over bit
+//   masks built on the host from the parents (the TPU kernel's ancestor
+//   matrix A and its transpose).  No loop runs on one thread alone.
+// - The stop rule per lane, with masks: a stopped lane's state is its
+//   input, bit for bit; a team leaves the loop when all its lanes have
+//   stopped.  Its backward is skipped when none of its lanes steps.
+// - Everything else stays float32 on CUDA cores, with IEEE sqrt and
+//   division (no fast-math).
+//
+// A build of the same source with PASSES = 1 (entry iter_block_tf32) runs
+// the products in one TF32 pass: the control that K1's tolerance must
+// refuse, never on the main path.  The timed build (iter_block_timed)
+// reads the SM clock after each phase of each step.
 //
 // Plain C interface, loaded with ctypes
 // (dragposer_tpu_torch/drag/iter_kernel.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;    // lanes per block
-constexpr int MAXJ = 32;    // joints  (one per thread of the warp)
+constexpr int TILE = 16;    // lanes per tile: the M of mma.m16n8k8
+constexpr int MAXJ = 32;    // joints (a bit each in the topology masks)
 constexpr int MAXL = 32;    // latent dims
 constexpr int MAXH = 64;    // hidden widths H1, H2
-constexpr int MAXH3 = 4 * MAXJ + 4;
+constexpr int KS1M = MAXL / 8;   // latent tiles
+constexpr int NT1M = MAXH / 8;   // H1 tiles
+constexpr int NT2M = MAXH / 8;   // H2 tiles
+constexpr int FRAG = 128;   // floats of a packed fragment block (32 × 4)
 constexpr float B1 = 0.9f, B2 = 0.999f, ADAM_EPS = 1e-8f;
 constexpr float C1 = static_cast<float>(1.0 - 0.9);
 constexpr float C2 = static_cast<float>(1.0 - 0.999);
 constexpr float SLOPE = 0.2f;
-
-// per-warp scratch (floats)
-constexpr int O_Z = 0;
-constexpr int O_H1 = O_Z + MAXL;
-constexpr int O_H2 = O_H1 + MAXH;
-constexpr int O_H3 = O_H2 + MAXH;
-constexpr int O_G3 = O_H3 + MAXH3;
-constexpr int O_G2 = O_G3 + MAXH3;
-constexpr int O_G1 = O_G2 + MAXH;
-constexpr int O_WQ = O_G1 + MAXH;         // world quats, 4 x MAXJ
-constexpr int O_CT = O_WQ + 4 * MAXJ;     // FK contributions, 3 x MAXJ
-constexpr int O_SB = O_CT + 3 * MAXJ;     // subtree position grads, 3 x MAXJ
-constexpr int O_DQ = O_SB + 3 * MAXJ;     // grads sent to the parent, 4 x MAXJ
-constexpr int SCRATCH = O_DQ + 4 * MAXJ;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   // constants (device)
-  const float *W1, *b1, *W2, *b2, *W3, *b3, *sq, *mq, *sd, *md, *offs;
-  const int* parents;
+  const float* frags;          // W1, W2, W3 packed (pack_fragments), split
+  const float *b1, *b2, *b3, *sq, *mq, *sd, *md, *offs;
+  const int* topo;             // (4, J): parents, ancestor, descendant,
+                               // child masks
   const float *w_pos, *w_rot, *n_ee;
   int w_lane_stride, w_row_stride, n_ee_stride;
   // per-lane inputs
@@ -77,17 +110,27 @@ struct Params {
   float *z, *m, *v, *dec;
   int* t;
   float *prev, *lp, *lr, *li;
+  // the aux at the decoded latent
+  float *a_lp, *a_lr, *a_wd, *a_disp, *a_wr, *a_pos, *a_pose;
+  // the timed build's clock cycles by phase, 8 a warp (else unused)
+  long long* clocks;
   // sizes and hyperparameters
   int B, J, L, H1, H2, H3, sync_k, max_iter;
   float eps_pos, eps_rot, min_incr, lr_adam, lambda_rot, lambda_t;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+// Shared-memory layout (in floats), computed on the host.
+struct Layout {
+  int ks1, nt1, nt2, nt3;      // tiles: latent, H1, H2, H3
+  int o_p2, o_p3;              // packed W2, W3 (W1 at 0)
+  int o_b1, o_b2, o_b3, o_sq, o_mq, o_off, o_sdm, o_topo;
+  int o_team;                  // the first team's scratch
+  int ldz, ld1, ld2, ldh;      // row strides: latent, H1, H2, H3 buffers
+  int team_floats;             // floats of one team's scratch
+  int teams;                   // teams (tiles) per block
+};
+
+// ---- quaternions (as in fast_iter) ----
 
 __device__ __forceinline__ void qmul(const float* a, const float* b, float* c) {
   c[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
@@ -174,314 +217,825 @@ __device__ __forceinline__ void to_matrix_grad(const float* q, const float* g,
 
 __device__ __forceinline__ float leaky(float a) { return a >= 0.f ? a : SLOPE * a; }
 
-__global__ void __launch_bounds__(WARPS * 32)
-iter_block_kernel(Params p, int ld1, int ld2, int ld3) {
-  extern __shared__ float4 smem4[];
-  float* sW1 = reinterpret_cast<float*>(smem4);
-  float* sW2 = sW1 + p.H1 * ld1;
-  float* sW3 = sW2 + p.H2 * ld2;
-  float* sb1 = sW3 + p.H3 * ld3;
-  float* sb2 = sb1 + p.H1;
-  float* sb3 = sb2 + p.H2;
-  float* ssq = sb3 + p.H3;
-  float* smq = ssq + 4 * p.J;
-  float* soff = smq + 4 * p.J;               // (J, 3)
-  float* sdm = soff + 3 * p.J;               // sd[3], md[3]
-  int* spar = reinterpret_cast<int*>(sdm + 6);
-  float* scratch = reinterpret_cast<float*>(spar + MAXJ);
+// Joint j's unit quaternion u = x / |x|, x = h·sq + mq, from the decoder
+// output row h (component c at c·J + j); returns |x|.  Rounded as the twin
+// rounds it (fast_iter.loss_from_decoded: a product, then a sum; squares
+// summed in order; no fused multiply-add): the normalized pose divides by
+// stds as small as ~6e-4, which turns one ulp of x into ~1e-4.
+__device__ __forceinline__ float unit_quat(const float* h, const float* sq,
+                                           const float* mq, int J, int j,
+                                           float* u) {
+  float x[4];
+  for (int c = 0; c < 4; ++c)
+    x[c] = __fadd_rn(__fmul_rn(h[c * J + j], sq[c * J + j]), mq[c * J + j]);
+  const float ss = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]),
+                                                 __fmul_rn(x[1], x[1])),
+                                       __fmul_rn(x[2], x[2])),
+                             __fmul_rn(x[3], x[3]));
+  const float nrm = sqrtf(ss);
+  for (int c = 0; c < 4; ++c) u[c] = x[c] / nrm;
+  return nrm;
+}
 
-  const int J = p.J, L = p.L, H1 = p.H1, H2 = p.H2, H3 = p.H3;
-  for (int i = threadIdx.x; i < H1 * p.L; i += blockDim.x)
-    sW1[(i / L) * ld1 + i % L] = p.W1[i];
-  for (int i = threadIdx.x; i < H2 * H1; i += blockDim.x)
-    sW2[(i / H1) * ld2 + i % H1] = p.W2[i];
-  for (int i = threadIdx.x; i < H3 * H2; i += blockDim.x)
-    sW3[(i / H2) * ld3 + i % H2] = p.W3[i];
-  for (int i = threadIdx.x; i < H1; i += blockDim.x) sb1[i] = p.b1[i];
-  for (int i = threadIdx.x; i < H2; i += blockDim.x) sb2[i] = p.b2[i];
-  for (int i = threadIdx.x; i < H3; i += blockDim.x) sb3[i] = p.b3[i];
-  for (int i = threadIdx.x; i < 4 * J; i += blockDim.x) {
-    ssq[i] = p.sq[i];
-    smq[i] = p.mq[i];
+// ---- 3xTF32 on mma.sync.m16n8k8 ----
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: cvt.rna.tf32.f32 for finite x, in two integer operations.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// d = a·b, from a zero accumulator.
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)), "f"(0.f),
+        "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// acc[n] += a·b[n] for the n < nt tiles of one k-step, in PASSES passes:
+// lo·hi + hi·lo + hi·hi (3) or hi·hi (1); b[n] = {hi, lo of its first
+// column; hi, lo of its second}.  The tensor cores' accumulation
+// truncates, and a running sum as C would truncate every pass against
+// it: so each k-step's passes start from zero and their sum is added in
+// float32, rounded to nearest.  Each pass is issued for every tile before
+// the next pass, so the tiles' chains overlap.
+template <int PASSES, int NM>
+__device__ __forceinline__ void kstep_mma(float (&acc)[NM][4], int nt,
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const float (&b)[NM][4]) {
+  float s[NM][4];
+#pragma unroll
+  for (int n = 0; n < NM; ++n)
+    if (n < nt) mma0(s[n], PASSES == 3 ? al : ah, b[n][0], b[n][2]);
+  if (PASSES == 3) {
+#pragma unroll
+    for (int n = 0; n < NM; ++n)
+      if (n < nt) mma(s[n], ah, b[n][1], b[n][3]);
+#pragma unroll
+    for (int n = 0; n < NM; ++n)
+      if (n < nt) mma(s[n], ah, b[n][0], b[n][2]);
   }
-  for (int i = threadIdx.x; i < 3 * J; i += blockDim.x) soff[i] = p.offs[i];
-  if (threadIdx.x < 3) {
-    sdm[threadIdx.x] = p.sd[threadIdx.x];
-    sdm[3 + threadIdx.x] = p.md[threadIdx.x];
+#pragma unroll
+  for (int n = 0; n < NM; ++n)
+    if (n < nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += s[n][e];
+}
+
+// An accumulator fragment (rows g, g+8; columns 2t, 2t+1 of its tile) as
+// the A fragment of the next product (columns t, t+4 = features 2t, 2t+1),
+// split.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  split(c[0], ah[0], al[0]);
+  split(c[2], ah[1], al[1]);
+  split(c[1], ah[2], al[2]);
+  split(c[3], ah[3], al[3]);
+}
+
+// Position of fragment lane f in a packed block (conflict-free for both
+// the forward float4 and the transposed float2 reads).
+__device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) << 1); }
+
+// Forward B operand {hi, lo of W[8n + g][8k + 2t]; hi, lo of 2t + 1} of a
+// weight packed with `ks` k-steps.
+__device__ __forceinline__ void load_b(const float* P, int ks, int k, int n,
+                                       float (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float4 w = *reinterpret_cast<const float4*>(P + (n * ks + k) * FRAG +
+                                                    swz(lane) * 4);
+  b[0] = w.x; b[1] = w.y; b[2] = w.z; b[3] = w.w;
+}
+
+// Transposed B operand: W[8k + 2t][8n + g] (hi, lo) and W[8k + 2t + 1][8n +
+// g] of the same packed weight (k over its rows, n over its columns).
+__device__ __forceinline__ void load_bt(const float* P, int ks, int k, int n,
+                                        float (&b)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* blk = P + (k * ks + n) * FRAG + (g & 1) * 2;
+  const float2 v0 = *reinterpret_cast<const float2*>(
+      blk + ((8 * t + (g >> 1)) ^ (2 * t)) * 4);
+  const float2 v1 = *reinterpret_cast<const float2*>(
+      blk + ((8 * t + 4 + (g >> 1)) ^ (2 * t)) * 4);
+  b[0] = v0.x; b[1] = v0.y; b[2] = v1.x; b[3] = v1.y;
+}
+
+// A team of TEAM warps owns one tile of 16 lanes; each product is split
+// by output tile, tile n to warp n % TEAM, its A operand read from shared
+// memory (rows g and g + 8 of the tile, columns 8k + 2t and 8k + 2t + 1 of
+// k-step k: the accumulator layout, so a product's output tiles are
+// stored as they come and read back as A fragments).
+constexpr int TEAM = 4;
+constexpr int TEAM_THREADS = TEAM * 32;
+constexpr int MAX_TEAMS = 4;                    // tiles a block
+constexpr int NT1W = (NT1M + TEAM - 1) / TEAM;  // a warp's H1 tiles
+constexpr int NT2W = (NT2M + TEAM - 1) / TEAM;  // a warp's H2 tiles
+constexpr int NG3 = 3;                          // H3 tiles a pass
+static_assert(KS1M <= TEAM, "a latent tile a warp");
+
+__device__ __forceinline__ void team_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(TEAM_THREADS) : "memory");
+}
+
+// Tiles w, w + TEAM, ... below nt: how many.
+__device__ __forceinline__ int owned(int nt, int w) {
+  return w < nt ? (nt - w + TEAM - 1) / TEAM : 0;
+}
+
+// y[i] = (A · B) for this warp's output tiles first + TEAM·i (i < cnt),
+// A of `ks` k-steps from rows r0 (lane g) and r1 (lane g + 8), B the
+// packed weight P (forward: Y = A·Wᵀ, `pks` = ks; transposed: Y = A·W,
+// `pks` = the forward's k-steps of W).
+template <int PASSES, bool TRANSPOSED, int NM>
+__device__ __forceinline__ void team_product(const float* r0, const float* r1,
+                                             int ks, const float* P, int pks,
+                                             int first, int cnt,
+                                             float (&y)[NM][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[i][e] = 0.f;
+  if (cnt <= 0) return;
+  for (int k = 0; k < ks; ++k) {
+    const float2 a0 = *reinterpret_cast<const float2*>(r0 + 8 * k + 2 * t);
+    const float2 a1 = *reinterpret_cast<const float2*>(r1 + 8 * k + 2 * t);
+    const float c[4] = {a0.x, a0.y, a1.x, a1.y};
+    uint32_t ah[4], al[4];
+    c_to_a(c, ah, al);
+    float b[NM][4];
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      if (i >= cnt) break;
+      if (TRANSPOSED)
+        load_bt(P, pks, k, first + TEAM * i, b[i]);
+      else
+        load_b(P, pks, k, first + TEAM * i, b[i]);
+    }
+    kstep_mma<PASSES>(y, cnt, ah, al, b);
   }
-  for (int i = threadIdx.x; i < J; i += blockDim.x) spar[i] = p.parents[i];
+}
+
+// Store tiles first + TEAM·i (i < cnt) to Y (row stride ldy), with the
+// bias added if given and, with `act`, LeakyReLU; returns the gates
+// (pre-activation ≥ 0) as bits 4i + e.
+template <int NM>
+__device__ __forceinline__ uint32_t store_tiles(float (&y)[NM][4], int cnt,
+                                                int first, const float* bias,
+                                                bool act, float* Y, int ldy) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t gates = 0;
+#pragma unroll
+  for (int i = 0; i < NM; ++i) {
+    if (i >= cnt) break;
+    const int col = 8 * (first + TEAM * i) + 2 * t;
+    if (bias) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+      y[i][0] += bb.x; y[i][1] += bb.y; y[i][2] += bb.x; y[i][3] += bb.y;
+    }
+    if (act) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (y[i][e] >= 0.f) gates |= 1u << (4 * i + e);
+        y[i][e] = leaky(y[i][e]);
+      }
+    }
+    *reinterpret_cast<float2*>(Y + g * ldy + col) = make_float2(y[i][0], y[i][1]);
+    *reinterpret_cast<float2*>(Y + (g + 8) * ldy + col) =
+        make_float2(y[i][2], y[i][3]);
+  }
+  return gates;
+}
+
+// The backward's LeakyReLU: gradients through the forward's gates.
+template <int NM>
+__device__ __forceinline__ void apply_gates(float (&y)[NM][4], int cnt,
+                                            uint32_t gates) {
+#pragma unroll
+  for (int i = 0; i < NM; ++i) {
+    if (i >= cnt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!((gates >> (4 * i + e)) & 1u)) y[i][e] *= SLOPE;
+  }
+}
+
+// The phases a timed build reads the clock after (slot CLOCK_SLOTS - 1
+// counts the steps): the decoder forward; the per-joint passes (world
+// quats, FK terms, positions and loss, the per-lane reductions); the aux;
+// the per-joint backward (descendant sums, then quats and root); the
+// decoder backward; Adam.
+enum { PH_DEC_FWD, PH_QUATS, PH_FK, PH_LOSS, PH_REDUCE, PH_AUX, PH_SUBTREE,
+       PH_QUAT_GRAD, PH_DEC_BWD, PH_ADAM, N_PHASES };
+constexpr int CLOCK_SLOTS = 16;
+
+template <int PASSES, bool TIMED>
+__global__ void __launch_bounds__(MAX_TEAMS * TEAM_THREADS, 1)
+iter_block_kernel(const Params p, const Layout y) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int J = p.J, L = p.L;
+
+  // ---- constants, once per block ----
+  {
+    const float4* src = reinterpret_cast<const float4*>(p.frags);
+    for (int i = threadIdx.x; i < y.o_b1 / 4; i += blockDim.x)
+      smem4[i] = __ldg(src + i);
+    float* b1s = sm + y.o_b1;
+    for (int i = threadIdx.x; i < 8 * y.nt1; i += blockDim.x)
+      b1s[i] = i < p.H1 ? p.b1[i] : 0.f;
+    float* b2s = sm + y.o_b2;
+    for (int i = threadIdx.x; i < 8 * y.nt2; i += blockDim.x)
+      b2s[i] = i < p.H2 ? p.b2[i] : 0.f;
+    float* b3s = sm + y.o_b3;
+    for (int i = threadIdx.x; i < 8 * y.nt3; i += blockDim.x)
+      b3s[i] = i < p.H3 ? p.b3[i] : 0.f;
+    for (int i = threadIdx.x; i < 4 * J; i += blockDim.x) {
+      sm[y.o_sq + i] = p.sq[i];
+      sm[y.o_mq + i] = p.mq[i];
+    }
+    for (int i = threadIdx.x; i < 3 * J; i += blockDim.x)
+      sm[y.o_off + i] = p.offs[i];
+    if (threadIdx.x < 3) {
+      sm[y.o_sdm + threadIdx.x] = p.sd[threadIdx.x];
+      sm[y.o_sdm + 3 + threadIdx.x] = p.md[threadIdx.x];
+    }
+    int* topo = reinterpret_cast<int*>(sm + y.o_topo);
+    for (int i = threadIdx.x; i < 4 * J; i += blockDim.x) topo[i] = p.topo[i];
+  }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + warp;
-  if (b >= p.B) return;
-  float* S = scratch + warp * SCRATCH;
-  float* sZ = S + O_Z;
-  float* sH1 = S + O_H1;
-  float* sH2 = S + O_H2;
-  float* sH3 = S + O_H3;
-  float* sG3 = S + O_G3;
-  float* sG2 = S + O_G2;
-  float* sG1 = S + O_G1;
-  float* sWQ = S + O_WQ;
-  float* sCT = S + O_CT;
-  float* sSB = S + O_SB;
-  float* sDQ = S + O_DQ;
-  const int B = p.B;
-  const bool is_joint = t < J;
-  const bool is_lat = t < L;
+  const float* P1 = sm;
+  const float* P2 = sm + y.o_p2;
+  const float* P3 = sm + y.o_p3;
+  const float* sb1 = sm + y.o_b1;
+  const float* sb2 = sm + y.o_b2;
+  const float* sb3 = sm + y.o_b3;
+  const float* ssq = sm + y.o_sq;
+  const float* smq = sm + y.o_mq;
+  const float* soff = sm + y.o_off;
+  const float sd[3] = {sm[y.o_sdm], sm[y.o_sdm + 1], sm[y.o_sdm + 2]};
+  const float md[3] = {sm[y.o_sdm + 3], sm[y.o_sdm + 4], sm[y.o_sdm + 5]};
+  const int* spar = reinterpret_cast<const int*>(sm + y.o_topo);
+  const unsigned* sanc = reinterpret_cast<const unsigned*>(spar + J);
+  const unsigned* sdesc = sanc + J;
+  const unsigned* schild = sdesc + J;
 
-  // ---- per-lane inputs, read once ----
-  float tp[3] = {0.f, 0.f, 0.f}, tr[9] = {}, wp = 0.f, wr = 0.f;
-  float off[3] = {0.f, 0.f, 0.f};
-  int par = 0;
-  if (is_joint) {
-    for (int c = 0; c < 3; ++c) tp[c] = p.tpos[(t * 3 + c) * B + b];
-    for (int k = 0; k < 9; ++k) tr[k] = p.trot[(t * 9 + k) * B + b];
-    wp = p.w_pos[t * p.w_row_stride + b * p.w_lane_stride];
-    wr = p.w_rot[t * p.w_row_stride + b * p.w_lane_stride];
-    for (int c = 0; c < 3; ++c) off[c] = soff[t * 3 + c];
-    par = spar[t];
-  }
-  float z = 0.f, m = 0.f, v = 0.f, dec = 0.f, tl = 0.f;
-  if (is_lat) {
-    z = p.z0[b * L + t];
-    m = p.m0[b * L + t];
-    v = p.v0[b * L + t];
-    dec = p.d0[b * L + t];
-    tl = p.tlat[b * L + t];
-  }
-  const float gr[4] = {p.gr[b * 4 + 0], p.gr[b * 4 + 1], p.gr[b * 4 + 2],
-                       p.gr[b * 4 + 3]};
-  const float n_ee = p.n_ee[b * p.n_ee_stride];
-  const bool act = p.lane_act[b] != 0;
-  int it = p.t0[b];
-  float prev = p.pl0[b], lp = p.lp0[b], lr = p.lr0[b], li = p.li0[b];
-  const float sd[3] = {sdm[0], sdm[1], sdm[2]};
-  const float md[3] = {sdm[3], sdm[4], sdm[5]};
+  const int team = threadIdx.x / TEAM_THREADS;
+  const int tt = threadIdx.x % TEAM_THREADS;     // thread of the team
+  const int w = tt >> 5, lane = tt & 31;
+  const int base = (blockIdx.x * y.teams + team) * TILE;
+  if (base >= p.B) return;   // the whole team
+  const int bar = 1 + team;  // the team's named barrier
+  const int B = p.B;
+  const int ks1 = y.ks1, nt1 = y.nt1, nt2 = y.nt2, nt3 = y.nt3;
+  const int ldz = y.ldz, ld1 = y.ld1, ld2 = y.ld2, ldh = y.ldh;
+  // the latent, decoded latent, Adam's moments and the target latent, a
+  // row a lane (16 x ldz each): state that lives through the launch is
+  // kept here rather than in registers, which 512 threads a block cap at
+  // 128 a thread
+  float* ZS = sm + y.o_team + team * y.team_floats;
+  float* DS = ZS + TILE * ldz;
+  float* MS = DS + TILE * ldz;
+  float* VS = MS + TILE * ldz;
+  float* TLS = VS + TILE * ldz;
+  float* HG = TLS + TILE * ldz;                      // H3, then G3
+  float* RED = HG + TILE * ldh;      // per-warp partial sums (TEAM, 6, 16)
+  float* U = RED + TEAM * 6 * TILE;  // the union below
+  // per-joint buffers (c, j, lane): unit quats and their norms, FK terms
+  // (then the grads sent to the parents), position grads, the loss's grads
+  // to the world quats
+  float* UQ = U;
+  float* CT = UQ + 5 * J * TILE;
+  float* GP = CT + 4 * J * TILE;
+  float* GW = GP + 3 * J * TILE;
+  // the decoder's activations and gradients, over the same floats
+  float* H1S = U;
+  float* H2S = U + TILE * ld1;
+  float* G2S = U;
+  float* G1S = U + TILE * ld2;
+#define AT(buf, c, j) (buf)[((c) * J + (j)) * TILE + pl]
+
+  // ---- the pair layout: lane pl of the tile, joints jg, jg + 8, ... ----
+  const int pl = tt & 15, jg = tt >> 4;
+  const int b = base + pl;
+  const bool in_range = b < B;
+  const int bc = in_range ? b : B - 1;
+  const float gr[4] = {p.gr[bc * 4 + 0], p.gr[bc * 4 + 1], p.gr[bc * 4 + 2],
+                       p.gr[bc * 4 + 3]};
+  const float n_ee = p.n_ee[bc * p.n_ee_stride];
+  const bool act = in_range && p.lane_act[bc] != 0;
+  int it = p.t0[bc];
+  float prev = p.pl0[bc], lp = p.lp0[bc], lr = p.lr0[bc], li = p.li0[bc];
   const float pos_scale = n_ee * 3.f;
   const float rot_scale = n_ee * 9.f;
+  // the loss gradient's factors (the losses themselves divide)
+  const float kp_lane = 2.f / pos_scale;
+  const float kr_lane = p.lambda_rot * 2.f / rot_scale;
 
-  for (int k = 0; k < p.sync_k; ++k) {
-    const bool active = ((lp > p.eps_pos) || (lr > p.eps_rot)) &&
-                        (it < p.max_iter) && (li > p.min_incr) && act;
-    if (!active) break;   // warp-uniform: every thread holds the same values
+  // ---- the accumulator layout: rows g and g + 8; warp w < ks1 owns the
+  // latent tile w (columns 8w + 2t + e) and its Adam state ----
+  const int g = lane >> 2, t = lane & 3;
+  const bool owner = w < ks1;
+  if (owner) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e >> 1), col = 8 * w + 2 * t + (e & 1);
+      const int rl = base + row < B ? base + row : B - 1;
+      const bool ok = col < L;
+      const int at = rl * L + col, sat = row * ldz + col;
+      ZS[sat] = ok ? p.z0[at] : 0.f;
+      DS[sat] = ok ? p.d0[at] : 0.f;
+      MS[sat] = ok ? p.m0[at] : 0.f;
+      VS[sat] = ok ? p.v0[at] : 0.f;
+      TLS[sat] = ok ? p.tlat[at] : 0.f;
+    }
+  }
+  team_sync(bar);
 
-    // ---------------- forward ----------------
-    if (is_lat) sZ[t] = z;
-    __syncwarp();
-    for (int o = t; o < H1; o += 32) {
-      float a = 0.f;
-      for (int i = 0; i < L; ++i) a = fmaf(sW1[o * ld1 + i], sZ[i], a);
-      sH1[o] = leaky(a + sb1[o]);
-    }
-    __syncwarp();
-    for (int o = t; o < H2; o += 32) {
-      float a = 0.f;
-      for (int i = 0; i < H1; ++i) a = fmaf(sW2[o * ld2 + i], sH1[i], a);
-      sH2[o] = leaky(a + sb2[o]);
-    }
-    __syncwarp();
-    for (int o = t; o < H3; o += 32) {
-      float a = 0.f;
-      for (int i = 0; i < H2; ++i) a = fmaf(sW3[o * ld3 + i], sH2[i], a);
-      sH3[o] = a + sb3[o];
-    }
-    __syncwarp();
+  long long cyc[N_PHASES] = {}, mark = TIMED ? clock64() : 0;
+#define PHASE(i)                            \
+  if (TIMED) {                              \
+    const long long now = clock64();        \
+    cyc[i] += now - mark;                   \
+    mark = now;                             \
+  }
+  int steps = 0;
+  for (int step = 0;; ++step) {
+    const bool active = act && step < p.sync_k &&
+                        ((lp > p.eps_pos) || (lr > p.eps_rot)) &&
+                        (it < p.max_iter) && (li > p.min_incr);
+    // every warp holds every lane's state: the same answer in the team
+    const bool any_active = __any_sync(FULL, active);
+    if (step > 0 && !any_active) break;
+    ++steps;
+    const bool row_act[2] = {__shfl_sync(FULL, active, g) != 0,
+                             __shfl_sync(FULL, active, g + 8) != 0};
 
-    // joint quats: rows are component-major (c * J + j)
-    float x[4] = {0.f, 0.f, 0.f, 1.f}, u[4] = {1.f, 0.f, 0.f, 0.f};
-    float nrm = 1.f;
-    if (is_joint) {
-      for (int c = 0; c < 4; ++c)
-        x[c] = sH3[c * J + t] * ssq[c * J + t] + smq[c * J + t];
-      nrm = sqrtf(x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3]);
-      for (int c = 0; c < 4; ++c) u[c] = x[c] / nrm;
+    // ---------------- forward decoder ----------------
+    // stepping lanes at their latent, the others at their decoded latent
+    // (a lane's first forward in the launch is its aux if it takes no step)
+    const float* r0 = (row_act[0] ? ZS : DS) + g * ldz;
+    const float* r1 = (row_act[1] ? ZS : DS) + (g + 8) * ldz;
+    float lt_row[2] = {0.f, 0.f};
+    if (owner) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * w + 2 * t + (e & 1);
+        if (col < L) {
+          const float dz = (e >> 1 ? r1 : r0)[col] -
+                           TLS[(g + 8 * (e >> 1)) * ldz + col];
+          lt_row[e >> 1] += dz * dz;
+        }
+      }
     }
-    float disp[3];
-    for (int c = 0; c < 3; ++c) disp[c] = sH3[4 * J + c] * sd[c] + md[c];
-    float q0[4];
-    for (int c = 0; c < 4; ++c) q0[c] = __shfl_sync(0xffffffffu, u[c], 0);
+    uint32_t gate1, gate2;
+    {
+      const int cnt = owned(nt1, w);
+      float h[NT1W][4];
+      team_product<PASSES, false>(r0, r1, ks1, P1, ks1, w, cnt, h);
+      gate1 = store_tiles(h, cnt, w, sb1, true, H1S, ld1);
+    }
+    team_sync(bar);
+    {
+      const int cnt = owned(nt2, w);
+      float h[NT2W][4];
+      team_product<PASSES, false>(H1S + g * ld1, H1S + (g + 8) * ld1, nt1, P2,
+                                  nt1, w, cnt, h);
+      gate2 = store_tiles(h, cnt, w, sb2, true, H2S, ld2);
+    }
+    team_sync(bar);
+    for (int i0 = 0, cnt3 = owned(nt3, w); i0 < cnt3; i0 += NG3) {
+      const int cnt = cnt3 - i0 < NG3 ? cnt3 - i0 : NG3;
+      float h[NG3][4];
+      team_product<PASSES, false>(H2S + g * ld2, H2S + (g + 8) * ld2, nt2, P3,
+                                  nt2, w + TEAM * i0, cnt, h);
+      store_tiles(h, cnt, w + TEAM * i0, sb3, false, HG, ldh);
+    }
+    team_sync(bar);
+    PHASE(PH_DEC_FWD)
+
+    // ---------------- per-joint forward ----------------
+    const float* hrow = HG + pl * ldh;
+    float u0[4];
+    const float nrm0 = unit_quat(hrow, ssq, smq, J, 0, u0);
     float W[4];
-    qmul(gr, q0, W);
-    float world[4] = {W[0], W[1], W[2], W[3]};
-    if (t > 0 && is_joint) qmul(W, u, world);
+    qmul(gr, u0, W);
+    float disp[3];
+    for (int c = 0; c < 3; ++c)
+      disp[c] = __fadd_rn(__fmul_rn(hrow[4 * J + c], sd[c]), md[c]);
     float wd[3];
     qrot(W, disp, wd);
-    if (is_joint)
-      for (int c = 0; c < 4; ++c) sWQ[c * MAXJ + t] = world[c];
-    __syncwarp();
-    float pw[4] = {1.f, 0.f, 0.f, 0.f};
-    float contrib[3] = {0.f, 0.f, 0.f};
-    if (is_joint) {
-      for (int c = 0; c < 4; ++c) pw[c] = sWQ[c * MAXJ + par];
-      qrot(pw, off, contrib);
-      for (int c = 0; c < 3; ++c) sCT[c * MAXJ + t] = contrib[c];
+    // a joint's world quat, W for the root, W ⊗ u_j for the others
+    auto world = [&](int j, float* wq) {
+      if (j == 0) {
+        for (int c = 0; c < 4; ++c) wq[c] = W[c];
+      } else {
+        const float u[4] = {AT(UQ, 0, j), AT(UQ, 1, j), AT(UQ, 2, j),
+                            AT(UQ, 3, j)};
+        qmul(W, u, wq);
+      }
+    };
+    for (int j = jg; j < J; j += 2 * TEAM) {
+      float u[4] = {u0[0], u0[1], u0[2], u0[3]};
+      float nrm = nrm0;
+      if (j > 0) nrm = unit_quat(hrow, ssq, smq, J, j, u);
+      for (int c = 0; c < 4; ++c) AT(UQ, c, j) = u[c];
+      AT(UQ, 4, j) = nrm;
     }
-    __syncwarp();
-    float dpos[3] = {0.f, 0.f, 0.f}, lp_j = 0.f, lr_j = 0.f;
-    float rm[9], drot[9];
-    if (is_joint) {
+    team_sync(bar);
+    PHASE(PH_QUATS)
+    for (int j = jg > 0 ? jg : 2 * TEAM; j < J; j += 2 * TEAM) {
+      float pw[4];
+      world(spar[j], pw);
+      const float off[3] = {soff[j * 3], soff[j * 3 + 1], soff[j * 3 + 2]};
+      float ct[3];
+      qrot(pw, off, ct);
+      for (int c = 0; c < 3; ++c) AT(CT, c, j) = ct[c];
+    }
+    team_sync(bar);
+    PHASE(PH_FK)
+
+    // positions, the loss, and its gradient to positions (shared) and to
+    // the joint's own world quat (kept for the backward)
+    float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // lp, lr, gwd, lt
+    for (int j = jg; j < J; j += 2 * TEAM) {
+      float tp[3], tr[9];
+      for (int c = 0; c < 3; ++c) tp[c] = __ldg(p.tpos + (j * 3 + c) * B + bc);
+      for (int q = 0; q < 9; ++q) tr[q] = __ldg(p.trot + (j * 9 + q) * B + bc);
+      const float wp = __ldg(p.w_pos + j * p.w_row_stride + bc * p.w_lane_stride);
+      const float wr = __ldg(p.w_rot + j * p.w_row_stride + bc * p.w_lane_stride);
       float acc[3] = {0.f, 0.f, 0.f};
-      for (int a = t; a != 0; a = spar[a])
-        for (int c = 0; c < 3; ++c) acc[c] += sCT[c * MAXJ + a];
+      for (unsigned msk = sanc[j]; msk; msk &= msk - 1) {
+        const int a = __ffs(msk) - 1;
+        for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);
+      }
+      float dpos[3];
       for (int c = 0; c < 3; ++c) dpos[c] = acc[c] + wd[c] - tp[c];
-      lp_j = wp * (dpos[0] * dpos[0] + dpos[1] * dpos[1] + dpos[2] * dpos[2]);
-      to_matrix(world, rm);
-      float s = 0.f;
+      part[0] += wp * (dpos[0] * dpos[0] + dpos[1] * dpos[1] +
+                       dpos[2] * dpos[2]);
+      float wq[4];
+      world(j, wq);
+      float rm[9], drot[9], ssum = 0.f;
+      to_matrix(wq, rm);
       for (int q = 0; q < 9; ++q) {
         drot[q] = rm[q] - tr[q];
-        s += drot[q] * drot[q];
+        ssum += drot[q] * drot[q];
       }
-      lr_j = wr * s;
-    }
-    const float dz_t = is_lat ? z - tl : 0.f;
-    const float lp_n = warp_sum(lp_j) / pos_scale;
-    const float lr_n = warp_sum(lr_j) / rot_scale * p.lambda_rot;
-    const float lt = warp_sum(dz_t * dz_t) / L;
-    const float total = lp_n + lr_n + lt * p.lambda_t;
-
-    // ---------------- backward ----------------
-    float gw[4] = {0.f, 0.f, 0.f, 0.f};   // d total / d world[t]
-    float gpos[3] = {0.f, 0.f, 0.f};
-    if (is_joint) {
-      const float kp = 2.f * wp / pos_scale;
-      for (int c = 0; c < 3; ++c) gpos[c] = kp * dpos[c];
-      const float kr = p.lambda_rot * 2.f * wr / rot_scale;
-      float gm[9];
+      part[1] += wr * ssum;
+      const float kp = wp * kp_lane;
+      for (int c = 0; c < 3; ++c) {
+        const float gp = kp * dpos[c];
+        AT(GP, c, j) = gp;
+        part[2 + c] += gp;
+      }
+      const float kr = wr * kr_lane;
+      float gm[9], gw[4];
       for (int q = 0; q < 9; ++q) gm[q] = kr * drot[q];
-      to_matrix_grad(world, gm, gw);
-      for (int c = 0; c < 3; ++c) sSB[c * MAXJ + t] = gpos[c];
+      to_matrix_grad(wq, gm, gw);
+      for (int c = 0; c < 4; ++c) AT(GW, c, j) = gw[c];
     }
-    float gwd[3];
-    for (int c = 0; c < 3; ++c) gwd[c] = warp_sum(gpos[c]);
-    __syncwarp();
-    if (t == 0) {   // subtree sums, reverse topological order (parent < child)
-      for (int j = J - 1; j >= 1; --j) {
-        const int pj = spar[j];
-        if (pj != 0)
-          for (int c = 0; c < 3; ++c) sSB[c * MAXJ + pj] += sSB[c * MAXJ + j];
+    PHASE(PH_LOSS)
+    // per-lane sums over the team: two joint groups a warp, then the warps
+    for (int q = 0; q < 5; ++q) part[q] += __shfl_xor_sync(FULL, part[q], 16);
+    if (lane < 16)
+      for (int q = 0; q < 5; ++q) RED[(w * 6 + q) * TILE + pl] = part[q];
+    // the temporal term from the latent tiles' owners (rows summed over t)
+    for (int r = 0; r < 2; ++r) {
+      lt_row[r] += __shfl_xor_sync(FULL, lt_row[r], 1);
+      lt_row[r] += __shfl_xor_sync(FULL, lt_row[r], 2);
+    }
+    if (t == 0) {
+      RED[(w * 6 + 5) * TILE + g] = lt_row[0];
+      RED[(w * 6 + 5) * TILE + g + 8] = lt_row[1];
+    }
+    team_sync(bar);
+    float sums[6];
+    for (int q = 0; q < 6; ++q) {
+      sums[q] = RED[q * TILE + pl];
+      for (int v = 1; v < TEAM; ++v) sums[q] += RED[(v * 6 + q) * TILE + pl];
+    }
+    const float gwd[3] = {sums[2], sums[3], sums[4]};
+    const float lp_n = sums[0] / pos_scale;
+    const float lr_n = sums[1] / rot_scale * p.lambda_rot;
+    const float total = lp_n + lr_n + sums[5] / L * p.lambda_t;
+    PHASE(PH_REDUCE)
+
+    // this forward is the lane's last of the launch: write its aux
+    const bool next = active && step + 1 < p.sync_k &&
+                      ((lp_n > p.eps_pos) || (lr_n > p.eps_rot)) &&
+                      (it + 1 < p.max_iter) && ((prev - total) > p.min_incr);
+    const bool write_aux = in_range && (active ? !next : step == 0);
+    if (write_aux) {
+      for (int j = jg; j < J; j += 2 * TEAM) {
+        float acc[3] = {0.f, 0.f, 0.f};
+        for (unsigned msk = sanc[j]; msk; msk &= msk - 1) {
+          const int a = __ffs(msk) - 1;
+          for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);
+        }
+        for (int c = 0; c < 3; ++c)
+          p.a_pos[(static_cast<size_t>(b) * J + j) * 3 + c] = acc[c] + wd[c];
+        for (int c = 0; c < 4; ++c)
+          p.a_pose[static_cast<size_t>(b) * 4 * J + 4 * j + c] =
+              __fsub_rn(AT(UQ, c, j), smq[c * J + j]) / ssq[c * J + j];
+      }
+      if (jg == 0) {
+        p.a_lp[b] = lp_n;
+        p.a_lr[b] = lr_n;
+        for (int c = 0; c < 3; ++c) {
+          p.a_wd[b * 3 + c] = wd[c];
+          p.a_disp[b * 3 + c] = disp[c];
+        }
+        for (int c = 0; c < 4; ++c) p.a_wr[b * 4 + c] = W[c];
       }
     }
-    __syncwarp();
-    if (is_joint) {
-      float gpw[4] = {0.f, 0.f, 0.f, 0.f};
-      if (t > 0) {
-        const float gc[3] = {sSB[t], sSB[MAXJ + t], sSB[2 * MAXJ + t]};
-        qrot_grad(pw, off, gc, gpw, nullptr);
-      }
-      for (int c = 0; c < 4; ++c) sDQ[c * MAXJ + t] = gpw[c];
+    PHASE(PH_AUX)
+    if (!any_active) continue;   // only a first step can get here
+
+    if (active) {
+      it += 1;
+      li = prev - total;
+      prev = total;
+      lp = lp_n;
+      lr = lr_n;
     }
-    __syncwarp();
-    float gu[4] = {0.f, 0.f, 0.f, 0.f};
-    float gWp[4] = {0.f, 0.f, 0.f, 0.f};   // this joint's share of d/dW
-    if (is_joint) {
-      for (int j = 1; j < J; ++j)
-        if (spar[j] == t)
-          for (int c = 0; c < 4; ++c) gw[c] += sDQ[c * MAXJ + j];
-      if (t == 0) {
-        for (int c = 0; c < 4; ++c) gWp[c] = gw[c];
-      } else {
-        float cu[4], cW[4];
-        qconj(u, cu);
-        qmul(gw, cu, gWp);
-        qconj(W, cW);
-        qmul(cW, gw, gu);
+
+    // ---------------- per-joint backward ----------------
+    team_sync(bar);   // every read of the FK terms is done
+    // subtree sums of the position grads, sent to the parents' world quats
+    for (int j = jg > 0 ? jg : 2 * TEAM; j < J; j += 2 * TEAM) {
+      float sub[3] = {0.f, 0.f, 0.f};
+      for (unsigned msk = sdesc[j]; msk; msk &= msk - 1) {
+        const int d = __ffs(msk) - 1;
+        for (int c = 0; c < 3; ++c) sub[c] += AT(GP, c, d);
       }
+      float pw[4];
+      world(spar[j], pw);
+      const float off[3] = {soff[j * 3], soff[j * 3 + 1], soff[j * 3 + 2]};
+      float gpw[4];
+      qrot_grad(pw, off, sub, gpw, nullptr);
+      for (int c = 0; c < 4; ++c) AT(CT, c, j) = gpw[c];
     }
+    team_sync(bar);
+    PHASE(PH_SUBTREE)
+    // each joint's world-quat grad; through x/|x| to the decoder output
+    float gWp[4] = {0.f, 0.f, 0.f, 0.f};
+    float cW[4];
+    qconj(W, cW);
+    for (int j = jg; j < J; j += 2 * TEAM) {
+      float gw[4] = {AT(GW, 0, j), AT(GW, 1, j), AT(GW, 2, j), AT(GW, 3, j)};
+      for (unsigned msk = schild[j]; msk; msk &= msk - 1) {
+        const int ch = __ffs(msk) - 1;
+        for (int c = 0; c < 4; ++c) gw[c] += AT(CT, c, ch);
+      }
+      if (j == 0) {
+        for (int c = 0; c < 4; ++c) gWp[c] += gw[c];
+        continue;
+      }
+      const float u[4] = {AT(UQ, 0, j), AT(UQ, 1, j), AT(UQ, 2, j),
+                          AT(UQ, 3, j)};
+      const float inv = 1.f / AT(UQ, 4, j);
+      float cu[4], pt[4], gu[4];
+      qconj(u, cu);
+      qmul(gw, cu, pt);
+      for (int c = 0; c < 4; ++c) gWp[c] += pt[c];
+      qmul(cW, gw, gu);
+      const float ug = u[0] * gu[0] + u[1] * gu[1] + u[2] * gu[2] + u[3] * gu[3];
+      for (int c = 0; c < 4; ++c)
+        HG[pl * ldh + c * J + j] = (gu[c] - u[c] * ug) * inv * ssq[c * J + j];
+    }
+    for (int c = 0; c < 4; ++c) gWp[c] += __shfl_xor_sync(FULL, gWp[c], 16);
+    if (lane < 16)
+      for (int c = 0; c < 4; ++c) RED[(w * 6 + c) * TILE + pl] = gWp[c];
+    team_sync(bar);
     float gW[4];
-    for (int c = 0; c < 4; ++c) gW[c] = warp_sum(gWp[c]);
+    for (int c = 0; c < 4; ++c) {
+      gW[c] = RED[c * TILE + pl];
+      for (int v = 1; v < TEAM; ++v) gW[c] += RED[(v * 6 + c) * TILE + pl];
+    }
     float gWd[4], gdisp[3];
     qrot_grad(W, disp, gwd, gWd, gdisp);
     for (int c = 0; c < 4; ++c) gW[c] += gWd[c];
-    if (t == 0) {
-      float cg[4];
+    if (jg == 0) {   // the root joint
+      float cg[4], gu[4];
       qconj(gr, cg);
       qmul(cg, gW, gu);
-    }
-    if (is_joint) {
-      const float ug = u[0] * gu[0] + u[1] * gu[1] + u[2] * gu[2] + u[3] * gu[3];
+      const float ug = u0[0] * gu[0] + u0[1] * gu[1] + u0[2] * gu[2] +
+                       u0[3] * gu[3];
       for (int c = 0; c < 4; ++c)
-        sG3[c * J + t] = (gu[c] - u[c] * ug) / nrm * ssq[c * J + t];
+        HG[pl * ldh + c * J] = (gu[c] - u0[c] * ug) / nrm0 * ssq[c * J];
+    } else if (jg == 1) {
+      for (int c = 0; c < 3; ++c) HG[pl * ldh + 4 * J + c] = gdisp[c] * sd[c];
     }
-    if (t < 3) sG3[4 * J + t] = gdisp[t] * sd[t];
-    __syncwarp();
-    for (int i = t; i < H2; i += 32) {
-      float a = 0.f;
-      for (int o = 0; o < H3; ++o) a = fmaf(sW3[o * ld3 + i], sG3[o], a);
-      sG2[i] = sH2[i] >= 0.f ? a : SLOPE * a;
-    }
-    __syncwarp();
-    for (int i = t; i < H1; i += 32) {
-      float a = 0.f;
-      for (int o = 0; o < H2; ++o) a = fmaf(sW2[o * ld2 + i], sG2[o], a);
-      sG1[i] = sH1[i] >= 0.f ? a : SLOPE * a;
-    }
-    __syncwarp();
+    team_sync(bar);
+    PHASE(PH_QUAT_GRAD)
 
-    // ---------------- Adam ----------------
-    if (is_lat) {
-      float g = 0.f;
-      for (int o = 0; o < H1; ++o) g = fmaf(sW1[o * ld1 + t], sG1[o], g);
-      g += p.lambda_t * (2.f * dz_t / L);
-      const float tf = static_cast<float>(it + 1);
-      m = B1 * m + C1 * g;
-      v = B2 * v + C2 * g * g;
-      const float m_hat = m / (1.f - powf(B1, tf));
-      const float v_hat = v / (1.f - powf(B2, tf));
-      dec = z;
-      z = z - p.lr_adam * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+    // ---------------- backward decoder ----------------
+    {
+      const int cnt = owned(nt2, w);
+      float gq[NT2W][4];
+      team_product<PASSES, true>(HG + g * ldh, HG + (g + 8) * ldh, nt3, P3,
+                                 nt2, w, cnt, gq);
+      apply_gates(gq, cnt, gate2);
+      store_tiles(gq, cnt, w, nullptr, false, G2S, ld2);
     }
-    it += 1;
-    li = prev - total;
-    prev = total;
-    lp = lp_n;
-    lr = lr_n;
-    __syncwarp();
-  }
+    team_sync(bar);
+    {
+      const int cnt = owned(nt1, w);
+      float gq[NT1W][4];
+      team_product<PASSES, true>(G2S + g * ld2, G2S + (g + 8) * ld2, nt2, P2,
+                                 nt1, w, cnt, gq);
+      apply_gates(gq, cnt, gate1);
+      store_tiles(gq, cnt, w, nullptr, false, G1S, ld1);
+    }
+    team_sync(bar);
+    float gz[1][4];
+    team_product<PASSES, true>(G1S + g * ld1, G1S + (g + 8) * ld1, nt1, P1,
+                               ks1, w, owner ? 1 : 0, gz);
+    PHASE(PH_DEC_BWD)
 
-  if (is_lat) {
-    p.z[b * L + t] = z;
-    p.m[b * L + t] = m;
-    p.v[b * L + t] = v;
-    p.dec[b * L + t] = dec;
+    // ---------------- Adam, by the latent tiles' owners ----------------
+    const int it_row[2] = {__shfl_sync(FULL, it, g), __shfl_sync(FULL, it, g + 8)};
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!row_act[r]) continue;
+        const float tf = static_cast<float>(it_row[r]);
+        const float bc1 = 1.f - powf(B1, tf);
+        const float bc2 = 1.f - powf(B2, tf);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * r + h;
+          const int col = 8 * w + 2 * t + h;
+          if (col >= L) continue;
+          const int sat = (g + 8 * r) * ldz + col;
+          const float z = ZS[sat];
+          const float dz = z - TLS[sat];
+          const float gr_ = gz[0][e] + p.lambda_t * (2.f * dz / L);
+          const float m = B1 * MS[sat] + C1 * gr_;
+          const float v = B2 * VS[sat] + C2 * gr_ * gr_;
+          MS[sat] = m;
+          VS[sat] = v;
+          const float m_hat = m / bc1;
+          const float v_hat = v / bc2;
+          DS[sat] = z;
+          ZS[sat] = z - p.lr_adam * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+        }
+      }
+    }
+    team_sync(bar);
+    PHASE(PH_ADAM)
   }
-  if (t == 0) {
+#undef PHASE
+#undef AT
+
+  if (owner) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = base + g + 8 * (e >> 1);
+      const int col = 8 * w + 2 * t + (e & 1);
+      if (col >= L || row >= B) continue;
+      const size_t at = static_cast<size_t>(row) * L + col;
+      const int sat = (g + 8 * (e >> 1)) * ldz + col;
+      p.z[at] = ZS[sat];
+      p.m[at] = MS[sat];
+      p.v[at] = VS[sat];
+      p.dec[at] = DS[sat];
+    }
+  }
+  if (tt < 16 && in_range) {
     p.t[b] = it;
     p.prev[b] = prev;
     p.lp[b] = lp;
     p.lr[b] = lr;
     p.li[b] = li;
   }
+  if (TIMED && lane == 0) {
+    long long* out = p.clocks + static_cast<size_t>(base / TILE * TEAM + w) *
+                                    CLOCK_SLOTS;
+    for (int i = 0; i < N_PHASES; ++i) out[i] = cyc[i];
+    out[CLOCK_SLOTS - 1] = steps;
+  }
 }
 
-int odd(int n) { return n | 1; }
+int tiles8(int n) { return (n + 7) / 8; }
+
+// The row stride ≥ n with stride ≡ r (mod 32).
+int stride(int n, int r) { return n + ((r - n) % 32 + 32) % 32; }
+
+// The layout for these sizes, with as many teams (tiles) a block
+// (1..MAX_TEAMS) as give every SM one block; 0 teams if one does not fit.
+Layout make_layout(const Params& p, int sms, int smem_limit) {
+  Layout y{};
+  y.ks1 = tiles8(p.L);
+  y.nt1 = tiles8(p.H1);
+  y.nt2 = tiles8(p.H2);
+  y.nt3 = tiles8(p.H3);
+  y.o_p2 = y.nt1 * y.ks1 * FRAG;
+  y.o_p3 = y.o_p2 + y.nt2 * y.nt1 * FRAG;
+  y.o_b1 = y.o_p3 + y.nt3 * y.nt2 * FRAG;
+  y.o_b2 = y.o_b1 + 8 * y.nt1;
+  y.o_b3 = y.o_b2 + 8 * y.nt2;
+  y.o_sq = y.o_b3 + 8 * y.nt3;
+  y.o_mq = y.o_sq + 4 * p.J;
+  y.o_off = y.o_mq + 4 * p.J;
+  y.o_sdm = y.o_off + 3 * p.J;
+  y.o_topo = y.o_sdm + 8;
+  y.o_team = (y.o_topo + 4 * p.J + 3) / 4 * 4;
+  // ≡ 8 (mod 32): the A-fragment reads (rows g, g + 8; float2 at 2t) hit
+  // distinct banks; the H3 / G3 rows ≡ 2, for the pair layout's column
+  // reads (16 rows, two joints a column apart)
+  y.ldz = 8 * y.ks1;   // three k-steps read a step: conflicts are cheap
+  y.ld1 = stride(8 * y.nt1, 8);
+  y.ld2 = stride(8 * y.nt2, 8);
+  y.ldh = stride(8 * y.nt3, 2);
+  const int joints = 16 * p.J * TILE;
+  const int acts = TILE * (y.ld1 + y.ld2);
+  y.team_floats = TILE * (5 * y.ldz + y.ldh) + TEAM * 6 * TILE +
+                  (joints > acts ? joints : acts);
+  const int tiles = (p.B + TILE - 1) / TILE;
+  int teams = (tiles + sms - 1) / sms;
+  teams = teams < 1 ? 1 : (teams > MAX_TEAMS ? MAX_TEAMS : teams);
+  while (teams > 0 && (static_cast<size_t>(y.o_team) + static_cast<size_t>(
+                           teams) * y.team_floats) * 4 >
+                          static_cast<size_t>(smem_limit))
+    --teams;
+  y.teams = teams;
+  return y;
+}
+
+template <int PASSES, bool TIMED>
+int launch(const void* params, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  if (p.J < 1 || p.J > MAXJ || p.L < 1 || p.L > MAXL || p.H1 < 1 ||
+      p.H1 > MAXH || p.H2 < 1 || p.H2 > MAXH || p.H3 != 4 * p.J + 3 ||
+      p.B < 1 || p.sync_k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, smem_limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout y = make_layout(p, sms, smem_limit);
+  if (y.teams < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      (static_cast<size_t>(y.o_team) + static_cast<size_t>(y.teams) *
+                                           y.team_floats) * sizeof(float);
+  err = cudaFuncSetAttribute(iter_block_kernel<PASSES, TIMED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (p.B + TILE - 1) / TILE;
+  const int grid = (tiles + y.teams - 1) / y.teams;
+  iter_block_kernel<PASSES, TIMED>
+      <<<grid, y.teams * TEAM_THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(p, y);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" int iter_block_params_size() { return static_cast<int>(sizeof(Params)); }
 
+extern "C" int iter_block_tile_lanes() { return TILE; }
+
 // `params` points to a host Params struct filled by the wrapper (ctypes
 // Structure of the same layout).  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int iter_block(const void* params, void* stream) {
-  const Params& p = *static_cast<const Params*>(params);
-  if (p.J > MAXJ || p.L > MAXL || p.H1 > MAXH || p.H2 > MAXH ||
-      p.H3 != 4 * p.J + 3 || p.B < 1 || p.sync_k < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ld1 = odd(p.L), ld2 = odd(p.H1), ld3 = odd(p.H2);
-  const size_t n_const = static_cast<size_t>(p.H1) * ld1 + p.H2 * ld2 +
-                         p.H3 * ld3 + p.H1 + p.H2 + p.H3 + 8 * p.J +
-                         3 * p.J + 6 + MAXJ;
-  const size_t n_const4 = (n_const + 3) / 4 * 4;   // keep scratch aligned
-  const size_t smem = (n_const4 + WARPS * SCRATCH) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      iter_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (p.B + WARPS - 1) / WARPS;
-  iter_block_kernel<<<grid, WARPS * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p, ld1, ld2, ld3);
-  return static_cast<int>(cudaGetLastError());
+  return launch<3, false>(params, stream);
+}
+
+// The same kernel with its products in one TF32 pass: the control that
+// K1's tolerance must refuse.
+extern "C" int iter_block_tf32(const void* params, void* stream) {
+  return launch<1, false>(params, stream);
+}
+
+// The same kernel reading the SM clock after each phase of each step into
+// `params->clocks` (CLOCK_SLOTS a warp: the phases; the last, the steps).
+extern "C" int iter_block_timed(const void* params, void* stream) {
+  return launch<3, true>(params, stream);
 }

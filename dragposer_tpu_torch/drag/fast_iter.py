@@ -5,7 +5,7 @@ with the batch last, as in the JAX module, so the port's public functions
 take the same layouts.  :func:`run_block` is the plain PyTorch twin of
 kernel K1 (``iter_kernel.run_block_fused``): ``sync_k`` masked Adam steps
 whose gradient comes from ``torch.autograd``.  ``COUNTS.plain`` counts its
-calls.
+calls, ``COUNTS.aux`` its aux rebuilds.
 
 Semantics mirror ``engine._drag_loss`` / ``_opt_body`` / ``_opt_cond``
 (formula-level; reductions associate differently, so results are
@@ -24,8 +24,21 @@ from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.models import skeleton_nn
 from dragposer_tpu_torch.ops.topology import Skeleton
 
-# Launch counts of kernel K1 (``iter_kernel``) and of this plain twin.
-COUNTS = _build.KernelCounts()
+
+class _Counts(_build.KernelCounts):
+    """K1's launch counts, its twin's, and the aux rebuilds by the plain
+    forward (:func:`aux_at`), which only the twin makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.aux = 0
+
+    def reset(self):
+        super().reset()
+        self.aux = 0
+
+
+COUNTS = _Counts()
 
 
 class FastContext(NamedTuple):
@@ -145,11 +158,17 @@ def forward_T(ctx: FastContext, hyper: eng.DragHyper, zT, grT, tposT, trotT,
               tlatT) -> ForwardT:
     """Transposed ``engine._drag_loss``: zT (L, B), grT (4, B), tposT
     (J, 3, B), trotT (J, 3, 3, B), tlatT (L, B).  LeakyReLU slope 0.2."""
-    J = ctx.parents.shape[0]
     h = skeleton_nn.leaky_relu(ctx.W1 @ zT + ctx.b1)
     h = skeleton_nn.leaky_relu(ctx.W2 @ h + ctx.b2)
     h = ctx.W3p @ h + ctx.b3p                          # (4J+3, B)
+    return loss_from_decoded(ctx, hyper, h, zT, grT, tposT, trotT, tlatT)
 
+
+def loss_from_decoded(ctx: FastContext, hyper: eng.DragHyper, h, zT, grT,
+                      tposT, trotT, tlatT) -> ForwardT:
+    """The rest of :func:`forward_T` after the decoder: ``h`` (4J+3, B) is
+    the decoder's output for the latent ``zT`` (L, B)."""
+    J = ctx.parents.shape[0]
     x = h[: 4 * J].reshape(4, J, -1) * ctx.sq + ctx.mq
     u = x / torch.sqrt(torch.sum(x * x, dim=0))[None]  # unit quats (4, J, B)
     pose_cm = ((u - ctx.mq) / ctx.sq).reshape(4 * J, -1)
@@ -216,7 +235,9 @@ def eval_targets_T(ctx: FastContext, hyper: eng.DragHyper, global_pos_b,
 
 def aux_at(ctx: FastContext, hyper: eng.DragHyper, decT, grT, tposT, trotT,
            tlatT) -> eng._LossAux:
-    """``_LossAux`` rebuilt at the decoded latent (L, B)."""
+    """``_LossAux`` rebuilt at the decoded latent (L, B) (counted in
+    ``COUNTS.aux``)."""
+    COUNTS.aux += 1
     with torch.no_grad():
         f = forward_T(ctx, hyper, decT, grT, tposT, trotT, tlatT)
     c = lambda x: x.contiguous()  # noqa: E731

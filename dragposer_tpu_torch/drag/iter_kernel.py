@@ -3,12 +3,14 @@
 
 :func:`run_block_fused` is the drop-in for ``fast_iter.run_block``: same
 inputs, same ``_OptCarry`` out.  On CUDA tensors it launches
-``csrc/iter_block.cu`` (one warp per lane, the sync_k loop inside the
-kernel, the gradient written by hand); on CPU tensors it runs the plain
-twin ``fast_iter.run_block``.  Either way the aux is then rebuilt by the
-plain ``fast_iter.forward_T`` at the decoded latent, as the JAX module does
-in XLA (``iter_kernel.py:359-368``).  ``COUNTS`` (shared with
-``fast_iter``) counts kernel launches and plain calls.
+``csrc/iter_block.cu`` (tiles of 16 lanes, 4 warps a tile, the decoder and
+its transpose on the tensor cores in 3xTF32, the sync_k loop inside the
+kernel, the gradient written by hand), which also writes the aux of each
+lane's last forward: no plain code runs.  On CPU tensors it runs the plain twin
+``fast_iter.run_block``, which rebuilds the aux with ``fast_iter.aux_at``
+as the JAX module does in XLA (``iter_kernel.py:359-368``).  ``COUNTS``
+(shared with ``fast_iter``) counts kernel launches, plain calls and aux
+rebuilds.
 """
 
 from __future__ import annotations
@@ -22,11 +24,14 @@ import torch
 from dragposer_tpu_torch import _build
 from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.drag import fast_iter
+from dragposer_tpu_torch.ops.temporal_fused import split_tf32
 
 COUNTS = fast_iter.COUNTS
 MAX_JOINTS = 32
 MAX_LATENT = 32
 MAX_HIDDEN = 64
+TILE_LANES = 16    # lanes of a tile (the M of mma.m16n8k8)
+TEAM_WARPS = 4     # warps that share a tile's work
 
 
 class KernelContext(NamedTuple):
@@ -38,15 +43,67 @@ class KernelContext(NamedTuple):
     b2: Any        # (H2,)
     W3: Any        # (4J+3, H2) component-major quat rows, then disp
     b3: Any        # (4J+3,)
+    frags: Any     # W1, W2, W3 as split mma fragments (pack_fragments)
     sq: Any        # (4, J)
     mq: Any        # (4, J)
     sd: Any        # (3,)
     md: Any        # (3,)
     offs: Any      # (J, 3)
-    parents: Any   # (J,) int32, parents[j] < j
+    topo: Any      # (4, J) int32: parents (parents[j] < j), ancestor,
+                   # descendant and child masks
     w_pos: Any     # (J, 1) or (J, B)
     w_rot: Any     # (J, 1) or (J, B)
     n_ee: Any      # (1,) or (B,)
+
+
+def fragment_position(f):
+    """Where fragment lane ``f`` (0..31) sits in a packed block: swizzled so
+    that the kernel's float4 reads (forward) and float2 reads (transposed)
+    are both free of shared-memory bank conflicts."""
+    return f ^ ((f >> 3) << 1)
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``w`` (O, I) of ``Y = X wᵀ`` as the kernel's B fragments of
+    ``mma.m16n8k8.tf32``, split: O and I padded with zeros to multiples of
+    8; block (n, k) of 32 × 4 floats for each out tile n and in tile k; in
+    it, fragment lane f = 4g + t at position ``fragment_position(f)`` holds
+    {hi, lo of w[8n + g, 8k + 2t]; hi, lo of w[8n + g, 8k + 2t + 1]} — the
+    contraction index numbered so that an accumulator fragment is the next
+    A fragment.  Shape (O8/8, I8/8, 32, 4)."""
+    O, I = w.shape
+    o8, i8 = -(-O // 8) * 8, -(-I // 8) * 8
+    padded = torch.zeros((o8, i8), dtype=torch.float32, device=w.device)
+    padded[:O, :I] = w
+    hi, lo = split_tf32(padded)
+    f = torch.arange(32, device=w.device)
+    rows = torch.arange(o8 // 8, device=w.device)[:, None, None] * 8 + f // 4
+    cols = torch.arange(i8 // 8, device=w.device)[None, :, None] * 8 \
+        + 2 * (f % 4)
+    vals = torch.stack([hi[rows, cols], lo[rows, cols], hi[rows, cols + 1],
+                        lo[rows, cols + 1]], dim=-1)   # (n, k, f, 4)
+    out = torch.empty_like(vals)
+    out[:, :, fragment_position(f)] = vals
+    return out.contiguous()
+
+
+def topology_masks(parents) -> np.ndarray:
+    """(3, J) bit masks of joints: row 0 the ancestors of j (root excluded,
+    j included: row j of the ancestor matrix A), row 1 its descendants (j
+    included: column j of A), row 2 its children other than the root."""
+    parents = np.asarray(parents, np.int64)
+    J = len(parents)
+    anc = np.zeros(J, np.uint64)
+    for j in range(1, J):
+        anc[j] = anc[parents[j]] | np.uint64(1 << j)
+    desc = np.zeros(J, np.uint64)
+    child = np.zeros(J, np.uint64)
+    for j in range(J - 1, 0, -1):
+        desc[j] |= np.uint64(1 << j)
+        if parents[j] != 0:
+            desc[parents[j]] |= desc[j]
+        child[parents[j]] |= np.uint64(1 << j)
+    return np.stack([anc, desc, child]).astype(np.uint32)
 
 
 def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
@@ -55,13 +112,22 @@ def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
     if parents[0] != 0 or np.any(parents[1:] >= np.arange(1, J)):
         raise ValueError("K1 needs parents in topological order "
                          "(parents[j] < j)")
+    if J > MAX_JOINTS:
+        raise ValueError(f"K1 takes J ≤ {MAX_JOINTS}, got {J}")
+    dev = ctx.W1.device
     c = lambda a: a.contiguous().to(torch.float32)  # noqa: E731
+    W1, W2, W3 = c(ctx.W1), c(ctx.W2), c(ctx.W3p)
+    topo = np.concatenate((parents[None].astype(np.int32),
+                           topology_masks(parents).view(np.int32)))
     return KernelContext(
-        W1=c(ctx.W1), b1=c(ctx.b1[:, 0]), W2=c(ctx.W2), b2=c(ctx.b2[:, 0]),
-        W3=c(ctx.W3p), b3=c(ctx.b3p[:, 0]),
+        W1=W1, b1=c(ctx.b1[:, 0]), W2=W2, b2=c(ctx.b2[:, 0]),
+        W3=W3, b3=c(ctx.b3p[:, 0]),
+        frags=torch.cat([pack_fragments(w).reshape(-1)
+                         for w in (W1, W2, W3)]),
         sq=c(ctx.sq[..., 0]), mq=c(ctx.mq[..., 0]),
         sd=c(ctx.sd[:, 0]), md=c(ctx.md[:, 0]),
-        offs=c(ctx.offs[..., 0].T), parents=ctx.parents.to(torch.int32),
+        offs=c(ctx.offs[..., 0].T),
+        topo=torch.as_tensor(topo, device=dev),
         w_pos=c(ctx.w_pos), w_rot=c(ctx.w_rot), n_ee=c(ctx.n_ee.reshape(-1)),
     )
 
@@ -73,15 +139,15 @@ class _Params(ctypes.Structure):
     """Mirror of ``struct Params`` in ``csrc/iter_block.cu``."""
 
     _fields_ = (
-        [(n, _P) for n in ("W1", "b1", "W2", "b2", "W3", "b3", "sq", "mq",
-                           "sd", "md", "offs", "parents", "w_pos", "w_rot",
-                           "n_ee")]
+        [(n, _P) for n in ("frags", "b1", "b2", "b3", "sq", "mq", "sd", "md",
+                           "offs", "topo", "w_pos", "w_rot", "n_ee")]
         + [(n, ctypes.c_int) for n in ("w_lane_stride", "w_row_stride",
                                        "n_ee_stride")]
         + [(n, _P) for n in ("gr", "tpos", "trot", "tlat", "lane_act", "z0",
                              "m0", "v0", "d0", "t0", "pl0", "lp0", "lr0",
                              "li0", "z", "m", "v", "dec", "t", "prev", "lp",
-                             "lr", "li")]
+                             "lr", "li", "a_lp", "a_lr", "a_wd", "a_disp",
+                             "a_wr", "a_pos", "a_pose", "clocks")]
         + [(n, ctypes.c_int) for n in ("B", "J", "L", "H1", "H2", "H3",
                                        "sync_k", "max_iter")]
         + [(n, ctypes.c_float) for n in ("eps_pos", "eps_rot", "min_incr",
@@ -91,11 +157,15 @@ class _Params(ctypes.Structure):
 
 
 def _declare(lib):
-    lib.iter_block.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.iter_block.restype = ctypes.c_int
+    for entry in (lib.iter_block, lib.iter_block_tf32, lib.iter_block_timed):
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
     lib.iter_block_params_size.restype = ctypes.c_int
+    lib.iter_block_tile_lanes.restype = ctypes.c_int
     if lib.iter_block_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("iter_block Params layout does not match")
+    if lib.iter_block_tile_lanes() != TILE_LANES:
+        raise RuntimeError("iter_block tile width does not match")
 
 
 def _library():
@@ -107,7 +177,7 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
     """What the kernel takes; checked on every device, so the CPU tests
     hold the callers to it too."""
     B, L = opt.latent.shape
-    J = kctx.parents.shape[0]
+    J = kctx.topo.shape[1]
     H1, H2 = kctx.W1.shape[0], kctx.W2.shape[0]
     if J > MAX_JOINTS or L > MAX_LATENT or max(H1, H2) > MAX_HIDDEN:
         raise ValueError(f"K1 takes J ≤ {MAX_JOINTS}, L ≤ {MAX_LATENT}, "
@@ -116,11 +186,15 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
         raise ValueError("W3 must have 4J+3 rows")
     dev = opt.latent.device
     f32, i32 = torch.float32, torch.int32
-    for name in ("W1", "b1", "W2", "b2", "W3", "b3", "sq", "mq", "sd", "md",
-                 "offs", "w_pos", "w_rot", "n_ee"):
+    for name in ("W1", "b1", "W2", "b2", "W3", "b3", "frags", "sq", "mq",
+                 "sd", "md", "offs", "w_pos", "w_rot", "n_ee"):
         x = getattr(kctx, name)
         _build.check_tensor(name, x, x.shape, dev, f32)
-    _build.check_tensor("parents", kctx.parents, (J,), dev, i32)
+    n_frags = sum(128 * (-(-w.shape[0] // 8)) * (-(-w.shape[1] // 8))
+                  for w in (kctx.W1, kctx.W2, kctx.W3))
+    if kctx.frags.shape != (n_frags,):
+        raise ValueError("frags must be pack_fragments of W1, W2, W3")
+    _build.check_tensor("topo", kctx.topo, (4, J), dev, i32)
     if kctx.w_pos.shape[1] not in (1, B) or kctx.w_pos.shape != (
             kctx.w_rot.shape) or kctx.w_pos.shape[0] != J:
         raise ValueError("w_pos/w_rot must be (J, 1) or (J, B)")
@@ -138,18 +212,18 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
         _build.check_tensor(name, getattr(opt, name), (B,), dev, f32)
 
 
-def _launch(kctx: KernelContext, hyper: eng.DragHyper, sync_k: int,
-            opt: eng._OptCarry, lane_active, global_rot, tposT, trotT,
-            target_latent):
-    """Fill ``Params`` (inputs already checked) and launch on the current
-    stream."""
+def _launch(entry: str, kctx: KernelContext, hyper: eng.DragHyper,
+            sync_k: int, opt: eng._OptCarry, lane_active, global_rot, tposT,
+            trotT, target_latent, clocks=None) -> eng._OptCarry:
+    """Fill ``Params`` (inputs already checked), launch ``entry`` on the
+    current stream, and return the new carry with the kernel's aux."""
     B, L = opt.latent.shape
-    J = kctx.parents.shape[0]
+    J = kctx.topo.shape[1]
     H1, H2, H3 = kctx.W1.shape[0], kctx.W2.shape[0], kctx.W3.shape[0]
     dev = opt.latent.device
     p = _Params()
-    for name in ("W1", "b1", "W2", "b2", "W3", "b3", "sq", "mq", "sd", "md",
-                 "offs", "parents", "w_pos", "w_rot", "n_ee"):
+    for name in ("frags", "b1", "b2", "b3", "sq", "mq", "sd", "md", "offs",
+                 "topo", "w_pos", "w_rot", "n_ee"):
         setattr(p, name, getattr(kctx, name).data_ptr())
     per_lane = kctx.w_pos.shape[1] != 1
     p.w_lane_stride, p.w_row_stride = (1, B) if per_lane else (0, 1)
@@ -162,13 +236,16 @@ def _launch(kctx: KernelContext, hyper: eng.DragHyper, sync_k: int,
                     ("pl0", opt.prev_loss), ("lp0", opt.loss_pos),
                     ("lr0", opt.loss_rot), ("li0", opt.loss_incr)):
         setattr(p, name, x.data_ptr())
-    out = {n: torch.empty((B, L), dtype=torch.float32, device=dev)
-           for n in ("z", "m", "v", "dec")}
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    out = {n: f32(B, L) for n in ("z", "m", "v", "dec")}
     out["t"] = torch.empty((B,), dtype=torch.int32, device=dev)
-    for n in ("prev", "lp", "lr", "li"):
-        out[n] = torch.empty((B,), dtype=torch.float32, device=dev)
+    for n in ("prev", "lp", "lr", "li", "a_lp", "a_lr"):
+        out[n] = f32(B)
+    out.update(a_wd=f32(B, 3), a_disp=f32(B, 3), a_wr=f32(B, 4),
+               a_pos=f32(B, J, 3), a_pose=f32(B, 4 * J))
     for n, x in out.items():
         setattr(p, n, x.data_ptr())
+    p.clocks = None if clocks is None else clocks.data_ptr()
 
     p.B, p.J, p.L, p.H1, p.H2, p.H3 = B, J, L, H1, H2, H3
     p.sync_k, p.max_iter = int(sync_k), int(hyper.max_iter)
@@ -177,28 +254,72 @@ def _launch(kctx: KernelContext, hyper: eng.DragHyper, sync_k: int,
     p.lambda_rot = hyper.lambda_rot
     p.lambda_t = hyper.lambda_temporal if hyper.use_temporal else 0.0
 
-    err = _library().iter_block(ctypes.addressof(p),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "iter_block")
-    COUNTS.kernel += 1
-    return out
+    err = getattr(_library(), entry)(
+        ctypes.addressof(p), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    aux = eng._LossAux(
+        loss_pos=out["a_lp"], loss_rot=out["a_lr"],
+        world_displacement=out["a_wd"], displacement=out["a_disp"],
+        world_rotation=out["a_wr"], positions=out["a_pos"],
+        pose=out["a_pose"])
+    return eng._OptCarry(
+        latent=out["z"], m=out["m"], v=out["v"], t=out["t"],
+        prev_loss=out["prev"], loss_pos=out["lp"], loss_rot=out["lr"],
+        loss_incr=out["li"], decoded_latent=out["dec"], aux=aux)
 
 
 def run_block_fused(ctx: fast_iter.FastContext, kctx: KernelContext,
                     hyper: eng.DragHyper, sync_k: int, opt: eng._OptCarry,
                     lane_active, state, tposT, trotT, target_latent):
     """Drop-in for ``fast_iter.run_block`` running the whole sync-K block in
-    one kernel launch (CUDA) or in the plain twin (CPU)."""
+    one kernel launch, aux included (CUDA), or in the plain twin (CPU)."""
     _check_inputs(kctx, opt, lane_active, state.global_rot, tposT, trotT,
                   target_latent)
     if not opt.latent.is_cuda:
         return fast_iter.run_block(ctx, hyper, sync_k, opt, lane_active,
                                    state, tposT, trotT, target_latent)
-    o = _launch(kctx, hyper, sync_k, opt, lane_active, state.global_rot,
-                tposT, trotT, target_latent)
-    aux = fast_iter.aux_at(ctx, hyper, o["dec"].T, state.global_rot.T,
-                           tposT, trotT, target_latent.T)
-    return eng._OptCarry(
-        latent=o["z"], m=o["m"], v=o["v"], t=o["t"], prev_loss=o["prev"],
-        loss_pos=o["lp"], loss_rot=o["lr"], loss_incr=o["li"],
-        decoded_latent=o["dec"], aux=aux)
+    out = _launch("iter_block", kctx, hyper, sync_k, opt, lane_active,
+                  state.global_rot, tposT, trotT, target_latent)
+    COUNTS.kernel += 1
+    return out
+
+
+def run_block_tf32(ctx: fast_iter.FastContext, kctx: KernelContext,
+                   hyper: eng.DragHyper, sync_k: int, opt: eng._OptCarry,
+                   lane_active, state, tposT, trotT, target_latent):
+    """K1 with its decoder products in one TF32 pass: the control that
+    ``chip_smoke.K1_TOL`` must refuse (CUDA only; never on the main path,
+    and not counted)."""
+    _check_inputs(kctx, opt, lane_active, state.global_rot, tposT, trotT,
+                  target_latent)
+    if not opt.latent.is_cuda:
+        raise ValueError("the TF32 control is a CUDA kernel")
+    return _launch("iter_block_tf32", kctx, hyper, sync_k, opt, lane_active,
+                   state.global_rot, tposT, trotT, target_latent)
+
+
+PHASES = ("decoder forward", "world quats", "FK terms", "positions and loss",
+          "per-lane sums", "aux", "descendant sums", "quat grads",
+          "decoder backward", "adam")   # csrc/iter_block.cu, enum PH_*
+_CLOCK_SLOTS = 16
+
+
+def phase_cycles(ctx: fast_iter.FastContext, kctx: KernelContext,
+                 hyper: eng.DragHyper, sync_k: int, opt: eng._OptCarry,
+                 lane_active, state, tposT, trotT, target_latent) -> dict:
+    """Where K1's time goes: one launch of its timed build (the SM clock
+    read after each phase of each step; CUDA only, not counted), as mean
+    cycles per warp-step of each phase over the warps that ran."""
+    _check_inputs(kctx, opt, lane_active, state.global_rot, tposT, trotT,
+                  target_latent)
+    B = opt.latent.shape[0]
+    warps = -(-B // TILE_LANES) * TEAM_WARPS
+    clocks = torch.zeros((warps, _CLOCK_SLOTS), dtype=torch.int64,
+                         device=opt.latent.device)
+    _launch("iter_block_timed", kctx, hyper, sync_k, opt, lane_active,
+            state.global_rot, tposT, trotT, target_latent, clocks)
+    c = clocks.double().cpu()
+    steps = float(c[:, -1].sum())
+    return {"warp_steps": steps,
+            "cycles_per_warp_step": {name: float(c[:, i].sum()) / steps
+                                     for i, name in enumerate(PHASES)}}

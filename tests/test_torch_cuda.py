@@ -8,7 +8,8 @@ at import.  On a GPU machine run them with::
 
 They repeat, at small sizes, what ``chip_smoke.py`` checks at the main
 paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``):
-K1, K2, K3a/K3b (rows), K3c/K3d (lanes), K4a/K4b, and one training step
+K1 (carry and aux, its TF32 control, lanes that take no step, no plain
+code), K2, K3a/K3b (rows), K3c/K3d (lanes), K4a/K4b, and one training step
 of each layout on the card against the CPU.
 """
 
@@ -40,12 +41,70 @@ def engines():
     return gpu, cpu, bvh, means, stds
 
 
-@pytest.mark.parametrize("sync_k,per_lane", [(1, False), (8, False),
-                                             (8, True)])
-def test_k1_kernel_matches_plain(engines, sync_k, per_lane):
-    r = chip_smoke.check_k1(engines[0], 257, sync_k, per_lane=per_lane,
+# K1 tiles 16 lanes, 4 warps a tile: B = 1, 15 and 17 leave a lone or
+# ragged tile, 37 several tiles and a ragged one, 4096 many blocks of
+# several tiles.
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("sync_k", [1, 24])
+@pytest.mark.parametrize("B", [1, 15, 17, 37, 4096])
+def test_k1_kernel_matches_plain(engines, B, sync_k, per_lane):
+    r = chip_smoke.check_k1(engines[0], B, sync_k, per_lane=per_lane,
                             timed=False)
-    assert r["ok"] and r["t_mismatch"] == 0, r
+    assert r["ok"] and r["t_mismatch"] <= B // 1000, r
+
+
+def test_k1_tolerance_refuses_tf32_control(engines):
+    r = chip_smoke.check_k1(engines[0], 512, 1, timed=False, control=True)
+    assert r["tf32_control_refused"] and r["ok"], r
+
+
+def test_k1_lanes_without_steps_keep_their_inputs(engines):
+    """Inactive lanes and lanes whose stop rule already holds take no step:
+    their carry comes back bit for bit, their aux is the forward at their
+    decoded latent."""
+    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+
+    engine = engines[0]
+    B = 53
+    ctx, kctx, opt, active, state, tposT, trotT, tlat = \
+        chip_smoke.k1_inputs(engine, B)
+    dev = opt.latent.device
+    done = torch.arange(B, device=dev) % 7 == 2
+    dec0 = opt.latent + 0.05 * torch.randn(opt.latent.shape, device=dev,
+                                           generator=torch.Generator(
+                                               device=dev).manual_seed(3))
+    opt = opt._replace(
+        decoded_latent=dec0.contiguous(),
+        loss_pos=torch.where(done, 0.0, opt.loss_pos).contiguous(),
+        loss_rot=torch.where(done, 0.0, opt.loss_rot).contiguous())
+    still = done | ~active
+    got = iter_kernel.run_block_fused(ctx, kctx, engine.hyper, 5, opt,
+                                      active, state, tposT, trotT, tlat)
+    assert int((got.t - opt.t)[~still].min()) >= 1
+    for name in chip_smoke.K1_OPT + ("t",):
+        assert torch.equal(getattr(got, name)[still],
+                           getattr(opt, name)[still]), name
+    ref = fast_iter.aux_at(ctx, engine.hyper, dec0.T, state.global_rot.T,
+                           tposT, trotT, tlat.T)
+    pose_std = kctx.sq.T.reshape(-1)   # as chip_smoke.k1_agreement
+    for name in chip_smoke.K1_AUX:
+        a, b = getattr(got.aux, name)[still], getattr(ref, name)[still]
+        if name == "pose":
+            a, b = a * pose_std, b * pose_std
+        assert bool(((a - b).abs() <= chip_smoke.K1_TOL["atol_per_step"]
+                     + chip_smoke.K1_TOL["rtol"] * b.abs()).all()), name
+
+
+def test_k1_runs_no_plain_code(engines):
+    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+
+    engine = engines[0]
+    args = chip_smoke.k1_inputs(engine, 64)
+    fast_iter.COUNTS.reset()
+    iter_kernel.run_block_fused(args[0], args[1], engine.hyper, 4, *args[2:])
+    torch.cuda.synchronize()
+    assert (fast_iter.COUNTS.kernel, fast_iter.COUNTS.plain,
+            fast_iter.COUNTS.aux) == (1, 0, 0)
 
 
 @pytest.mark.parametrize("s_dec,kind", [(1, "row"), (5, "row"),

@@ -12,9 +12,11 @@ a near-zero gradient component into latent differences that compound.
 
 ``test_hand_gradient_matches_autograd`` checks, on the CPU, the hand-written
 backward that the CUDA kernel (``csrc/iter_block.cu``) implements: a torch
-transcription of the kernel's per-lane reverse pass — parent-chain FK,
-reverse-topological subtree sums, quaternion-product and rotation
-transposes — against autograd.
+transcription of the kernel's per-lane reverse pass — FK as ancestor sums
+and position gradients as descendant sums over the kernel's topology
+masks, each joint gathering its children's terms, quaternion-product and
+rotation transposes — against autograd.  The kernel's tensor-core
+products are held in ``tests/test_torch_iter_pack.py``.
 """
 
 import numpy as np
@@ -196,6 +198,7 @@ def _to_matrix_grad(q, g):
 def _hand_grad(ctx, hyper, zT, grT, tposT, trotT, tlatT):
     """d total / d z (L, B) by the kernel's reverse pass."""
     from dragposer_tpu_torch.drag import fast_iter as tfi
+    from dragposer_tpu_torch.drag import iter_kernel as tik
 
     J = ctx.parents.shape[0]
     par = ctx.parents.tolist()
@@ -217,13 +220,13 @@ def _hand_grad(ctx, hyper, zT, grT, tposT, trotT, tlatT):
     pw = tuple(w[par] for w in world)
     off = tuple(ctx.offs[c] for c in range(3))
     contrib = tfi._qrot(*pw, *off)
+    bits = lambda m: [a for a in range(J) if (int(m) >> a) & 1]  # noqa: E731
+    anc, desc, child = tik.topology_masks(par)
     pos = []
-    for j in range(J):
+    for j in range(J):   # ancestor sums over the kernel's masks
         acc = [torch.zeros_like(W[0]) for _ in range(3)]
-        a = j
-        while a != 0:
+        for a in bits(anc[j]):
             acc = [acc[c] + contrib[c][a] for c in range(3)]
-            a = par[a]
         pos.append([acc[c] + wd[c] for c in range(3)])
     pos = [torch.stack([p[c] for p in pos]) for c in range(3)]
     n_ee = ctx.n_ee
@@ -234,16 +237,15 @@ def _hand_grad(ctx, hyper, zT, grT, tposT, trotT, tlatT):
           * (rm[k] - trotT[:, k // 3, k % 3]) for k in range(9)]
     gw = [g.clone() for g in _to_matrix_grad(world, gm)]
     gwd = tuple(g.sum(0) for g in gpos)
-    sub = [g.clone() for g in gpos]
-    for j in range(J - 1, 0, -1):
-        if par[j] != 0:
-            for c in range(3):
-                sub[c][par[j]] += sub[c][j]
-    for j in range(1, J):
-        gq, _ = _qrot_grad(tuple(p[j] for p in pw), tuple(o[j] for o in off),
-                           tuple(s[j] for s in sub))
-        for c in range(4):
-            gw[c][par[j]] = gw[c][par[j]] + gq[c]
+    gpw = {}
+    for j in range(1, J):   # descendant sums, sent to the parent
+        sub = [sum(gpos[c][d] for d in bits(desc[j])) for c in range(3)]
+        gpw[j], _ = _qrot_grad(tuple(p[j] for p in pw),
+                               tuple(o[j] for o in off), sub)
+    for j in range(J):      # each joint gathers its children's
+        for ch in bits(child[j]):
+            for c in range(4):
+                gw[c][j] = gw[c][j] + gpw[ch][c]
     cu = _conj(u)
     gW_parts = _qmul(tuple(g[1:] for g in gw), tuple(c[1:] for c in cu))
     gu = [torch.cat((torch.zeros_like(g[:1]), g[1:]))
