@@ -8,7 +8,8 @@ printing its own line (any failure exits nonzero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five kernel sources from ``dragposer_tpu_torch/csrc``
    (one ``nvcc`` each, all started together), and count the tensor-core
-   instructions (``HMMA``/``HGMMA``) in K1's and K2's SASS (0 fails);
+   instructions (``HMMA``/``HGMMA``) in the SASS of K1, K2 and the two
+   feed-forward libraries (K3a/K3b, K3c/K3d) (0 fails);
 3. K1 (drag-iteration block, 3xTF32 on the tensor cores) against its
    plain twin on the card, the carry and the aux, with a control at
    sync_k = 1 that must fail the same tolerance (K1's products in one
@@ -32,9 +33,13 @@ printing its own line (any failure exits nonzero):
    same path on the CPU (plain twins) in lockstep at one Adam step a frame
    and, at five, K2 held to its float32 twin's distance, which K2 in one
    TF32 pass must exceed;
-6. K3c/K3d (lanes feed-forward with hash dropout) against their plain
-   twins at S = 15, B = 512 (rate 0.1 and 0) and B = 4096, the kernel's own
-   dropout mask extracted and held against the hash bit for bit;
+6. K3c/K3d (lanes feed-forward with hash dropout; K3d 3xTF32 on the
+   tensor cores) against their plain twins at S = 15, B = 512 (rate 0.1
+   and 0) and B = 4096, the kernel's own dropout mask extracted and held
+   against the hash bit for bit, with a control that must fail the same
+   tolerance (the backward twin's gradient products in one TF32 pass); the
+   gate probe: K3d's ReLU gates on knife-edge pre-activations equal to
+   K3c's bit for bit;
 7. K4a/K4b (lanes attention core) against their plain twins at the
    training path's shapes, ``scaled_dot_product_attention`` timed beside
    them as a yardstick only;
@@ -49,7 +54,8 @@ printing its own line (any failure exits nonzero):
    given the card kernel's ReLU gates, with the gate flips counted, and a
    control (the kernels on bfloat16 operands) that the check must refuse;
 10. K3a/K3b (rows feed-forward) against their plain twins at M = 15 × 512
-    (rate 0.1 and 0) and 15 × 4096, the kernel's mask against the hash;
+    (rate 0.1 and 0) and 15 × 4096, the kernel's mask against the hash,
+    the TF32 control and the gate probe, as in 6;
 11. the pose-VAE trainer: ``train.vae.train(use_fk=True)`` for one epoch
     of the corpus at the recipe's batch of 64 pairs (pairs/s, loss terms,
     eval MPJPE/MPEEPE, peak memory, the checkpoint read back); the step
@@ -715,13 +721,44 @@ def k3_mask_from_kernel(S: int, B: int, rate: float, seed: int,
     return hidden > 0.5
 
 
+def k3_within_tol(got, ref) -> tuple:
+    """(max abs error by name, every output within K3_TOL and finite) of
+    (y, dx, dW1, db1, dW2, db2) or of the five gradients alone."""
+    import torch
+
+    errs, ok = {}, True
+    for name, a, r in zip(("y", "dx", "dw1", "db1", "dw2", "db2")[-len(got):],
+                          got, ref):
+        err = (a - r).abs()
+        tol = K3_TOL["atol_rel"] * float(r.abs().max()) \
+            + K3_TOL["rtol"] * r.abs()
+        errs[name] = float(err.max())
+        ok &= bool((err <= tol).all()) and bool(torch.isfinite(a).all())
+    return errs, ok
+
+
+def k3_bwd_bound_ms(S: int, B: int, nbytes: float) -> tuple:
+    """K3b/K3d's bound: the four gradient products in 3 TF32 passes on the
+    tensor cores, the recomputed pre-activation (one product) in float32 on
+    CUDA cores, the two units concurrent; or the bytes."""
+    product = k3_flops(S, B) / 2
+    t_ops = max(3 * 4 * product / TF32_PEAK, product / F32_PEAK)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def check_k3(S: int, B: int, rate: float, seed: int = 4242,
              reps: int = 5, timed: bool = True, device="cuda",
              layout: str = "lanes") -> dict:
     """The feed-forward kernels of ``layout`` (K3c/K3d, or K3a/K3b on the
     S·B rows) against their plain twins on the card: y, the hidden's zero
-    pattern (extracted from the kernel) and all five gradients."""
+    pattern (extracted from the kernel) and all five gradients; and the
+    backward's control, the float32 twin with its four gradient products in
+    one TF32 pass, which K3_TOL must refuse."""
     import torch
+
+    from dragposer_tpu_torch.ops.temporal_fused import matmul_tf32
 
     x, w1, b1, w2, b2, gy = k3_inputs(S, B, seed, device=device,
                                       layout=layout)
@@ -737,37 +774,82 @@ def check_k3(S: int, B: int, rate: float, seed: int = 4242,
     grads, grads_ref = bwd_k(), bwd_p()
     if device == "cuda":
         torch.cuda.synchronize()
-    errs, ok = {}, True
-    for name, a, r in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
-                          (y, *grads), (y_ref, *grads_ref)):
-        err = (a - r).abs()
-        tol = K3_TOL["atol_rel"] * float(r.abs().max()) \
-            + K3_TOL["rtol"] * r.abs()
-        errs[name] = float(err.max())
-        ok &= bool((err <= tol).all()) and bool(torch.isfinite(a).all())
-    res = {"max_abs_err": errs, "ok": ok}
+    control = k3_fn(layout, "bwd_plain")(x, w1, b1, w2, gy, rate, seed,
+                                         mm=matmul_tf32)
+    errs, ok = k3_within_tol((y, *grads), (y_ref, *grads_ref))
+    control_errs, control_ok = k3_within_tol(control, grads_ref)
+    res = {"max_abs_err": errs, "bwd_tf32_control_max_abs_err": control_errs,
+           "bwd_tf32_control_refused": not control_ok}
+    res["ok"] = ok and not control_ok
     if rate > 0:
         got = k3_mask_from_kernel(S, B, rate, seed, device=device,
                                   layout=layout)
         ref = k3_keep_mask(layout, S, B, rate, seed, device=got.device)
         res["mask_mismatch"] = int((got != ref).sum())
         res["keep_share"] = float(got.float().mean())
-        res["ok"] = ok and res["mask_mismatch"] == 0
+        res["ok"] = res["ok"] and res["mask_mismatch"] == 0
     if timed:
         res["fwd_ms"], res["fwd_plain_ms"] = cuda_ms(fwd_k, reps), \
             cuda_ms(fwd_p, reps)
         res["bwd_ms"], res["bwd_plain_ms"] = cuda_ms(bwd_k, reps), \
             cuda_ms(bwd_p, reps)
+        res["bwd_device_ms"] = device_ms(bwd_k)
         wbytes = 4 * (w1.numel() + b1.numel() + w2.numel() + b2.numel())
         act = 4 * x.numel()
         flops = k3_flops(S, B)
         res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
             flops, 2 * act + wbytes)
-        # recomputed FF1, W2ᵀg, W1ᵀdpre, dW1, dW2; in x, g, weights; out
-        # dx and the weight gradients
-        res["bwd_bound_ms"], res["bwd_bound_by"] = bound_ms(
-            2.5 * flops, 3 * act + 2 * wbytes)
+        # in x, g and the weights; out dx and the weight gradients
+        nbytes = 3 * act + 2 * wbytes
+        res["bwd_bound_ms"], res["bwd_bound_by"] = k3_bwd_bound_ms(S, B,
+                                                                   nbytes)
+        # the recomputed FF1, W2ᵀg, W1ᵀdpre, dW1 and dW2 all in float32 on
+        # CUDA cores
+        res["bwd_bound_f32_cuda_core_ms"] = bound_ms(2.5 * flops, nbytes)[0]
     return res
+
+
+def k3_gate_probe(layout: str, rate: float, n: int = 64, seed: int = 77,
+                  device="cuda") -> dict:
+    """Whether the backward's ReLU gate is the forward's bit for bit, on
+    ``n`` single columns whose pre-activations W1·x + b1 lie a few ulps
+    from 0: b1 cancels W1·x in float64 and is then rounded to float32, so
+    any other summation of pre than the forward's flips gates.  W2's row 0
+    is ones and g = e₀, so db1 = gate · keep · scale exactly; it must equal
+    the forward kernel's hidden > 0 (``k3_hidden_from_kernel``) times the
+    keep scale."""
+    import torch
+
+    from dragposer_tpu_torch.ops import hash_dropout
+
+    F, D = 2048, 48
+    rng = np.random.default_rng(seed)
+    bound = np.sqrt(6.0 / (F + D))
+    w1 = (rng.uniform(-1, 1, (F, D)) * bound).astype(np.float32)
+    w2 = (rng.uniform(-1, 1, (D, F)) * bound).astype(np.float32)
+    w2[0] = 1.0
+    shape = K3_LAYOUTS[layout]["shape"](1, 1)
+    g = np.zeros(shape, np.float32)
+    g.reshape(-1)[0] = 1.0          # feature 0 of the one column
+    scale = hash_dropout.keep_scale(rate) if rate > 0 else 1.0
+    t = lambda a: torch.as_tensor(a).to(device).contiguous()  # noqa: E731
+    mismatch = opened = 0
+    for c in range(n):
+        x = rng.normal(size=D).astype(np.float32)
+        b1 = (-(w1.astype(np.float64) @ x.astype(np.float64))).astype(
+            np.float32)
+        xs = t(x.reshape(shape))
+        gate = k3_hidden_from_kernel(xs, t(w1), t(b1), rate, c,
+                                     layout).reshape(-1) > 0
+        db1 = k3_fn(layout, "bwd")(xs, t(w1), t(b1), t(w2), t(g), rate,
+                                   c)[2]
+        want = torch.where(gate, torch.tensor(scale, device=gate.device),
+                           torch.tensor(0.0, device=gate.device))
+        mismatch += int((db1 != want).sum())
+        opened += int(gate.sum())
+    return {"layout": layout, "rate": rate, "columns": n,
+            "gates_open": opened, "gates": n * F, "mismatch": mismatch,
+            "ok": mismatch == 0}
 
 
 def k4_flops(sq: int, sk: int, B: int, h: int = 4, dh: int = 12) -> tuple:
@@ -1231,6 +1313,52 @@ def k1_figures(B: int = B_MAIN) -> dict:
     return res
 
 
+def k3_figures(calls: int = 20) -> dict:
+    """K3b's and K3d's numbers for a parent/change comparison, from
+    whatever ``dragposer_tpu_torch`` is first on the path: the card; each
+    backward's own device time per call (every kernel a call launches,
+    summed, ``torch.profiler``) and its kernel launches per call, at S = 15
+    × B = 512 and 4096, rate 0.1; then, per layout, one epoch of the
+    temporal trainer at dropout 0.1 and the device time per step of 3
+    profiled steps by kernel (``profile_training_steps``)."""
+    import torch
+
+    res = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), "clocks": [gpu_clocks()]}
+    for layout in ("rows", "lanes"):
+        name = K3_LAYOUTS[layout]["names"][1]
+        for B in (B_TRAIN, B_PROFILED):
+            x, w1, b1, w2, _, gy = k3_inputs(15, B, 4242, layout=layout)
+            bwd = k3_fn(layout, "bwd")
+            bwd(x, w1, b1, w2, gy, 0.1, 4242)
+            prof = profile_device_time(lambda: [
+                bwd(x, w1, b1, w2, gy, 0.1, 4242) for _ in range(calls)], {})
+            res[f"{name}_15x{B}"] = {
+                "device_ms": prof["device_busy_ms"] / calls,
+                "launches_per_call": prof["kernel_launches"] / calls,
+                "event_ms": cuda_ms(lambda: bwd(x, w1, b1, w2, gy, 0.1,
+                                                4242))}
+            del x, w1, b1, w2, gy
+            torch.cuda.empty_cache()
+    res["clocks"].append(gpu_clocks())
+    data_dir = write_training_corpus()
+    for layout in ("lanes", "rows"):
+        run_training(data_dir, 0.1, 1, layout=layout)
+        prof = profile_training_steps(data_dir, 0.1, timed_steps=10,
+                                      repeats=1, layout=layout)
+        n = prof["profiled_steps"]
+        res[f"train_{layout}"] = {
+            "step_ms": prof["step_ms"],
+            "device_ms_per_step": {k: v / n for k, v in
+                                   prof["device_ms"].items()},
+            "device_busy_ms_per_step": prof["device_busy_ms"] / n,
+            "idle_share": prof["idle_share"]}
+    res["clocks"].append(gpu_clocks())
+    return res
+
+
 def profile_device_time(fn, kernels: dict) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device self time
     by kernel: ``kernels`` maps a name to a substring of the CUDA kernel's
@@ -1250,7 +1378,7 @@ def profile_device_time(fn, kernels: dict) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     groups = dict.fromkeys([*kernels, "other"], 0.0)
-    top = []
+    top, launches = [], 0
     for e in prof.key_averages():
         # device-side kernels only: a CPU operator's entry repeats the time
         # of the kernels it launched, and a user annotation on the device
@@ -1267,11 +1395,12 @@ def profile_device_time(fn, kernels: dict) -> dict:
                     if all(part in e.key for part in (
                         (sym,) if isinstance(sym, str) else sym))), "other")
         groups[key] += us / 1e3
+        launches += e.count
         top.append((us / 1e3, e.key[:60]))
     busy = sum(groups.values())
     top.sort(reverse=True)
     return {"wall_ms": wall_ms, "device_ms": groups,
-            "device_busy_ms": busy,
+            "device_busy_ms": busy, "kernel_launches": launches,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "top_device_ms": [[round(t, 3), k] for t, k in top[:8]]}
 
@@ -1941,6 +2070,15 @@ def step_card_vs_cpu(phase: str, data_dir: str, rate: float, B: int,
         fail(f"the card's training step disagrees with the CPU's: {r}")
 
 
+def gate_probe(phase: str, layout: str) -> None:
+    for rate in (0.1, 0.0):
+        r = k3_gate_probe(layout, rate)
+        print(f"{phase} gate probe, backward against forward: "
+              + json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"the backward's ReLU gates differ from the forward's: {r}")
+
+
 def k3_entries(r: dict, fwd_name: str, bwd_name: str, source: str,
                replaces, launches) -> list:
     """The ``kernels`` entries of a feed-forward pair from its check."""
@@ -1956,7 +2094,8 @@ def k3_entries(r: dict, fwd_name: str, bwd_name: str, source: str,
                             if k != "y"),
          "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
          "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
-         "library_ms": None}]
+         "library_ms": None, "device_ms": r["bwd_device_ms"],
+         "bound_f32_cuda_core_ms": r["bwd_bound_f32_cuda_core_ms"]}]
 
 
 def fail(msg: str) -> None:
@@ -1995,7 +2134,8 @@ def main() -> int:
     print(f"[2] built {', '.join(n + '.cu' for n in sources)} in "
           f"{logs['_seconds']} s (nvcc -arch sm_90a); ptxas: "
           + " | ".join(ptx), flush=True)
-    for name, source in (("K1", "iter_block"), ("K2", "temporal_forward")):
+    for name, source in (("K1", "iter_block"), ("K2", "temporal_forward"),
+                         ("K3a/K3b", "ff_rows"), ("K3c/K3d", "ff_lanes")):
         n_mma = sass_mma_count(source)
         print(f"[2] {name} SASS (cuobjdump -sass): {n_mma} HMMA/HGMMA "
               "instructions", flush=True)
@@ -2131,11 +2271,13 @@ def main() -> int:
         print(f"[6] K3c/K3d S=15 B={B} rate={rate}: " + json.dumps(r),
               flush=True)
         if not r["ok"]:
-            fail(f"K3 disagrees with its plain twin: {r}")
+            fail(f"K3 disagrees with its plain twin, or K3_TOL passes the "
+                 f"TF32 control: {r}")
         if (B, rate) == (B_TRAIN, 0.1):
             k3_main = r
         elif B == B_PROFILED:
             k3_big = r
+    gate_probe("[6]", "lanes")
     k4_main = k4_big = None
     for B, sq, sk, causal in ((B_TRAIN, 14, 14, False),
                               (B_TRAIN, 15, 14, False),
@@ -2178,11 +2320,13 @@ def main() -> int:
         print(f"[10] K3a/K3b M=15x{B}={15 * B} rate={rate}: " + json.dumps(r),
               flush=True)
         if not r["ok"]:
-            fail(f"K3a/K3b disagree with their plain twins: {r}")
+            fail(f"K3a/K3b disagree with their plain twins, or K3_TOL "
+                 f"passes the TF32 control: {r}")
         if (B, rate) == (B_TRAIN, 0.1):
             k3r_main = r
         elif B == B_PROFILED:
             k3r_big = r
+    gate_probe("[10]", "rows")
 
     # ---- the pose-VAE trainer, then the rows trainer on its generator ----
     vae_data = vae_corpus()
@@ -2273,10 +2417,11 @@ def main() -> int:
     ]
     times = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
              "bwd_plain_ms", "bwd_bound_ms")
+    k3_times = (*times, "bwd_device_ms", "bwd_bound_f32_cuda_core_ms")
     print("[15] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
-              "K3a/K3b": {k: k3r_big[k] for k in times},
-              "K3c/K3d": {k: k3_big[k] for k in times},
+              "K3a/K3b": {k: k3r_big[k] for k in k3_times},
+              "K3c/K3d": {k: k3_big[k] for k in k3_times},
               "K4": {k: k4_big[k] for k in (*times, "library_fwd_ms",
                                             "library_bwd_ms")}}), flush=True)
     print(f"[15] total {time.time() - t_start:.1f} s")

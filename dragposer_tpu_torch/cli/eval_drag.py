@@ -10,7 +10,8 @@ Usage::
 
 All files are reconstructed concurrently in one pipelined batch (ragged
 lengths halt per lane).  Prints MPJPE / MPEEPE per file and the throughput.
-Restarts, the hypothesis beam, meshes and constraints are not ported yet.
+Restarts, the hypothesis beam, meshes and constraints are not ported yet:
+a config that asks for them by default (``3_trackers``) is refused.
 """
 
 from __future__ import annotations
@@ -189,6 +190,15 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    tracker = resolve_config(args.config)
+    # The JAX CLI runs this config's restarts and beam by default; running
+    # one start here instead would give another result without a word.
+    if tracker.default_restarts > 1 or tracker.default_branch_every > 0:
+        raise NotImplementedError(
+            f"config {tracker.name!r} asks for {tracker.default_restarts} "
+            f"restarts / a beam re-branched every "
+            f"{tracker.default_branch_every} frames: restarts and the "
+            "hypothesis beam are not ported yet")
     if len(args.inputs) == 1 and os.path.isdir(args.inputs[0]):
         d = args.inputs[0]
         files = sorted(os.path.join(d, f) for f in os.listdir(d)
@@ -199,7 +209,7 @@ def main(argv=None):
     _, _, parents, offsets, _ = encoding.info_from_bvh(first)
     skeleton = Skeleton.build(parents, offsets, first.names)
     engine, means, stds = build_engine(
-        args.model_path, parents, resolve_config(args.config),
+        args.model_path, parents, tracker,
         use_temporal=not args.no_temporal, skeleton=skeleton,
         device=args.device)
     return evaluate_batched(engine, means, stds, skeleton, files,

@@ -10,7 +10,8 @@
 // db2.
 //
 // The kernels are ff_common.cuh's, on the layout below: a column is
-// (token s, lane b), a tile 64 lanes of one token, launched unsplit.  What
+// (token s, lane b), a tile 64 lanes of one token, the forward launched
+// unsplit.  What
 // bounds them and what their design does about it is written there; at
 // S = 15, B = 512, F = 2048 the forward is 3.02 GFLOP and the (S·B, 2048)
 // hidden, never stored, would be 63 MB.  The dropout mask is the JAX
@@ -92,33 +93,28 @@ extern "C" int ff_lanes_forward(const void* x, const void* w1, const void* b1,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Floats of workspace ff_lanes_backward needs for P partials.
-extern "C" long long ff_lanes_workspace_floats(int P, int F) {
-  return static_cast<long long>(P) * (2LL * F * D + F);
-}
-
-// Column tiles of the weight-gradient pass (P <= this).
-extern "C" int ff_lanes_column_tiles(int S, int B) {
-  return S * ((B + BN - 1) / BN);
+// Floats of the backward's workspace.
+extern "C" long long ff_lanes_backward_workspace_floats(int S, int B, int F) {
+  return ff::bwd_workspace_floats(static_cast<long long>(S) * B,
+                                  S * ((B + BN - 1) / BN), F);
 }
 
 // g, dx like x; dw1 like w1; db1 (F); dw2 like w2; db2 (48); ws of
-// ff_lanes_workspace_floats(P, F) floats, 1 <= P <= ff_lanes_column_tiles.
+// ff_lanes_backward_workspace_floats(S, B, F) floats.
 extern "C" int ff_lanes_backward(const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* g, void* dx,
                                  void* dw1, void* db1, void* dw2, void* db2,
-                                 void* ws, int P, int S, int B, int F,
+                                 void* ws, int S, int B, int F,
                                  unsigned seedmix, unsigned thresh,
                                  float scale, int use_mask, void* stream) {
-  if (bad_shape(S, B, F) || P < 1 || P > ff_lanes_column_tiles(S, B))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(S, B, F)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ff::backward(
       make_layout(S, B), static_cast<const float*>(x),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(g),
       static_cast<float*>(dx), static_cast<float*>(dw1),
       static_cast<float*>(db1), static_cast<float*>(dw2),
-      static_cast<float*>(db2), static_cast<float*>(ws), P, 1, F,
+      static_cast<float*>(db2), static_cast<float*>(ws), F,
       ff::make_mask(seedmix, thresh, scale, use_mask),
       static_cast<cudaStream_t>(stream)));
 }

@@ -14,8 +14,9 @@
 // M = 15·512 = 7,680 the forward is 3.02 GFLOP (0.045 ms at the float32
 // CUDA-core peak), the backward 2.5× that, and the (M, 2048) hidden, never
 // stored, would be 63 MB.  At that M there are only 120 row tiles for 132
-// SMs, so the forward and dx passes split the 32 hidden chunks over
-// gridDim.y (ff_rows_splits) and add the partials in a fixed order.  The
+// SMs, so the forward splits the 32 hidden chunks over gridDim.y
+// (ff_rows_splits) and adds the partials in a fixed order; the backward's
+// grid is column groups × hidden groups (ff_common.cuh).  The
 // dropout mask is the TPU kernel's, from the row's global index m: row
 // m % 256 of TILE_M = 256-row tile m // 256, position (m % 256)·F + f.  So
 // it matches JAX bit for bit whatever this kernel's tiling, and a ragged
@@ -31,7 +32,6 @@ using ff::D;
 using ff::FC;
 
 constexpr int TILE_M = 256;   // the TPU kernel's row tile
-constexpr int SMS = 132;      // H100 SXM
 
 // x (M, D): column c = row m.
 struct RowsLayout {
@@ -70,29 +70,29 @@ bool bad_shape(int M, int F) { return M < 1 || ff::bad_width(F); }
 
 }  // namespace
 
-// Hidden splits of the forward and dx passes over M rows: about two blocks
-// per SM, at most 8.
+// Hidden splits of the forward over M rows: about two blocks per SM, at
+// most 8.
 extern "C" int ff_rows_splits(int M, int F) {
   const int tiles = (M + BN - 1) / BN;
-  int s = (2 * SMS + tiles - 1) / tiles;
+  int s = (2 * ff::SMS + tiles - 1) / tiles;
   if (s > 8) s = 8;
   if (s > F / FC) s = F / FC;
   return s < 1 ? 1 : s;
 }
 
-// Floats of workspace: P weight-gradient partials (P = 0 for the forward)
-// and, when the passes split, the split partials of y or dx.
-extern "C" long long ff_rows_workspace_floats(int P, int M, int F) {
+// Floats of the forward's workspace: the split partials of y, if it splits.
+extern "C" long long ff_rows_forward_workspace_floats(int M, int F) {
   const int s = ff_rows_splits(M, F);
-  return static_cast<long long>(P) * (2LL * F * D + F) +
-         (s > 1 ? static_cast<long long>(s) * M * D : 0LL);
+  return s > 1 ? static_cast<long long>(s) * M * D : 0LL;
 }
 
-// Row tiles of the weight-gradient pass (P <= this).
-extern "C" int ff_rows_column_tiles(int M) { return (M + BN - 1) / BN; }
+// Floats of the backward's workspace.
+extern "C" long long ff_rows_backward_workspace_floats(int M, int F) {
+  return ff::bwd_workspace_floats(M, (M + BN - 1) / BN, F);
+}
 
 // x, y (M, 48); w1 (F, 48); b1 (F); w2 (48, F); b2 (48); ws of
-// ff_rows_workspace_floats(0, M, F) floats; float32, contiguous.  F a
+// ff_rows_forward_workspace_floats(M, F) floats; float32, contiguous.  F a
 // multiple of 64.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int ff_rows_forward(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y,
@@ -110,22 +110,21 @@ extern "C" int ff_rows_forward(const void* x, const void* w1, const void* b1,
 }
 
 // g, dx like x; dw1 like w1; db1 (F); dw2 like w2; db2 (48); ws of
-// ff_rows_workspace_floats(P, M, F) floats, 1 <= P <= ff_rows_column_tiles.
+// ff_rows_backward_workspace_floats(M, F) floats.
 extern "C" int ff_rows_backward(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* g, void* dx,
                                 void* dw1, void* db1, void* dw2, void* db2,
-                                void* ws, int P, int M, int F,
-                                unsigned seedmix, unsigned thresh, float scale,
-                                int use_mask, void* stream) {
-  if (bad_shape(M, F) || P < 1 || P > ff_rows_column_tiles(M))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                void* ws, int M, int F, unsigned seedmix,
+                                unsigned thresh, float scale, int use_mask,
+                                void* stream) {
+  if (bad_shape(M, F)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(ff::backward(
       make_layout(M, F), static_cast<const float*>(x),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(g),
       static_cast<float*>(dx), static_cast<float*>(dw1),
       static_cast<float*>(db1), static_cast<float*>(dw2),
-      static_cast<float*>(db2), static_cast<float*>(ws), P,
-      ff_rows_splits(M, F), F, ff::make_mask(seedmix, thresh, scale, use_mask),
+      static_cast<float*>(db2), static_cast<float*>(ws), F,
+      ff::make_mask(seedmix, thresh, scale, use_mask),
       static_cast<cudaStream_t>(stream)));
 }

@@ -17,7 +17,10 @@ are the TPU kernels' bit for bit:
 :func:`ff_dropout_lanes` and :func:`ff_dropout_seeded` (rows) go through
 ``torch.autograd.Function`` classes: on CUDA tensors the forward launches K3c
 or K3a and the backward K3d or K3b (``csrc/ff_lanes.cu``,
-``csrc/ff_rows.cu``); on CPU tensors both directions run the plain twins
+``csrc/ff_rows.cu``; the backward forms its four gradient products on the
+tensor cores as 3xTF32, whose plain form is ``backward_plain(mm=
+temporal_fused.matmul_3xtf32)``); on CPU tensors both directions run the
+plain twins
 (:func:`forward_plain` / :func:`backward_plain`, :func:`forward_plain_rows`
 / :func:`backward_plain_rows`).  ``COUNTS_FWD`` / ``COUNTS_BWD`` (lanes) and
 ``COUNTS_FWD_ROWS`` / ``COUNTS_BWD_ROWS`` count both.  The port has no
@@ -39,7 +42,6 @@ FC = 64            # the kernel's hidden chunk: F must be a multiple
 TILE_B = 256
 TILE_M = 256       # the rows kernel's TPU row tile
 TILE_MIX = 0x7FEB352D
-MAX_PARTIALS = 8   # column splits of the weight-gradient pass
 
 COUNTS_FWD = _build.KernelCounts()
 COUNTS_BWD = _build.KernelCounts()
@@ -91,18 +93,26 @@ def forward_plain(x, w1, b1, w2, b2, rate: float, seed: int):
     return torch.einsum("df,sfb->sdb", w2, h) + b2[None, :, None]
 
 
-def backward_plain(x, w1, b1, w2, g, rate: float, seed: int):
-    """K3d's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed."""
+def _columns(t):
+    """(S, n, B) → (n, S·B): one column per (token, lane)."""
+    return t.transpose(0, 1).reshape(t.shape[1], -1)
+
+
+def backward_plain(x, w1, b1, w2, g, rate: float, seed: int,
+                   mm=torch.matmul):
+    """K3d's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed.
+    ``mm(a, b)`` forms the four gradient products (W2ᵀg, W1ᵀdpre, dW1,
+    dW2); the pre-activation stays float32."""
     COUNTS_BWD.plain += 1
     pre, hd, keep = _hidden(x, w1, b1, rate, seed)
-    dh = torch.einsum("df,sdb->sfb", w2, g)
+    dh = mm(w2.T, g)
     if keep is not None:
         dh = torch.where(keep, dh * hash_dropout.keep_scale(rate),
                          torch.zeros((), device=x.device))
     dpre = torch.where(pre > 0, dh, torch.zeros((), device=x.device))
-    dx = torch.einsum("fd,sfb->sdb", w1, dpre)
-    dw1 = torch.einsum("sfb,sdb->fd", dpre, x)
-    dw2 = torch.einsum("sdb,sfb->df", g, hd)
+    dx = mm(w1.T, dpre)
+    dw1 = mm(_columns(dpre), _columns(x).T)
+    dw2 = mm(_columns(g), _columns(hd).T)
     return dx, dw1, dpre.sum(dim=(0, 2)), dw2, g.sum(dim=(0, 2))
 
 
@@ -115,12 +125,10 @@ def _declare(lib):
                   ctypes.c_float)
     lib.ff_lanes_forward.argtypes = [p] * 6 + [i, i, i, u, u, f, i, p]
     lib.ff_lanes_forward.restype = i
-    lib.ff_lanes_backward.argtypes = [p] * 11 + [i, i, i, i, u, u, f, i, p]
+    lib.ff_lanes_backward.argtypes = [p] * 11 + [i, i, i, u, u, f, i, p]
     lib.ff_lanes_backward.restype = i
-    lib.ff_lanes_workspace_floats.argtypes = [i, i]
-    lib.ff_lanes_workspace_floats.restype = ctypes.c_longlong
-    lib.ff_lanes_column_tiles.argtypes = [i, i]
-    lib.ff_lanes_column_tiles.restype = i
+    lib.ff_lanes_backward_workspace_floats.argtypes = [i, i, i]
+    lib.ff_lanes_backward_workspace_floats.restype = ctypes.c_longlong
 
 
 def _library():
@@ -173,8 +181,7 @@ def backward_kernel(x, w1, b1, w2, g, rate: float, seed: int):
     s, _, b = x.shape
     f = w1.shape[0]
     lib = _library()
-    parts = min(MAX_PARTIALS, lib.ff_lanes_column_tiles(s, b))
-    ws = torch.empty(lib.ff_lanes_workspace_floats(parts, f),
+    ws = torch.empty(lib.ff_lanes_backward_workspace_floats(s, b, f),
                      dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
@@ -183,7 +190,7 @@ def backward_kernel(x, w1, b1, w2, g, rate: float, seed: int):
     err = lib.ff_lanes_backward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), parts, s, b, f,
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), s, b, f,
         *_mask_args(rate, seed), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_lanes_backward")
     COUNTS_BWD.kernel += 1
@@ -248,16 +255,19 @@ def forward_plain_rows(x, w1, b1, w2, b2, rate: float, seed: int):
     return h @ w2.T + b2
 
 
-def backward_plain_rows(x, w1, b1, w2, g, rate: float, seed: int):
-    """K3b's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed."""
+def backward_plain_rows(x, w1, b1, w2, g, rate: float, seed: int,
+                        mm=torch.matmul):
+    """K3b's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed;
+    ``mm`` as in :func:`backward_plain`."""
     COUNTS_BWD_ROWS.plain += 1
     pre, hd, keep = _hidden_rows(x, w1, b1, rate, seed)
-    dh = g @ w2
+    dh = mm(g, w2)
     if keep is not None:
         dh = torch.where(keep, dh * hash_dropout.keep_scale(rate),
                          torch.zeros((), device=x.device))
     dpre = torch.where(pre > 0, dh, torch.zeros((), device=x.device))
-    return (dpre @ w1, dpre.T @ x, dpre.sum(dim=0), g.T @ hd, g.sum(dim=0))
+    return (mm(dpre, w1), mm(dpre.T, x), dpre.sum(dim=0), mm(g.T, hd),
+            g.sum(dim=0))
 
 
 def _declare_rows(lib):
@@ -265,12 +275,12 @@ def _declare_rows(lib):
                   ctypes.c_float)
     lib.ff_rows_forward.argtypes = [p] * 7 + [i, i, u, u, f, i, p]
     lib.ff_rows_forward.restype = i
-    lib.ff_rows_backward.argtypes = [p] * 11 + [i, i, i, u, u, f, i, p]
+    lib.ff_rows_backward.argtypes = [p] * 11 + [i, i, u, u, f, i, p]
     lib.ff_rows_backward.restype = i
-    lib.ff_rows_workspace_floats.argtypes = [i, i, i]
-    lib.ff_rows_workspace_floats.restype = ctypes.c_longlong
-    lib.ff_rows_column_tiles.argtypes = [i]
-    lib.ff_rows_column_tiles.restype = i
+    lib.ff_rows_forward_workspace_floats.argtypes = [i, i]
+    lib.ff_rows_forward_workspace_floats.restype = ctypes.c_longlong
+    lib.ff_rows_backward_workspace_floats.argtypes = [i, i]
+    lib.ff_rows_backward_workspace_floats.restype = ctypes.c_longlong
 
 
 def _library_rows():
@@ -281,7 +291,7 @@ def forward_kernel_rows(x, w1, b1, w2, b2, rate: float, seed: int):
     """Launch K3a on the current stream (inputs checked by the caller)."""
     m, f = x.shape[0], w1.shape[0]
     lib = _library_rows()
-    ws = torch.empty(lib.ff_rows_workspace_floats(0, m, f),
+    ws = torch.empty(lib.ff_rows_forward_workspace_floats(m, f),
                      dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     err = lib.ff_rows_forward(
@@ -297,8 +307,7 @@ def backward_kernel_rows(x, w1, b1, w2, g, rate: float, seed: int):
     """Launch K3b on the current stream: (dx, dW1, db1, dW2, db2)."""
     m, f = x.shape[0], w1.shape[0]
     lib = _library_rows()
-    parts = min(MAX_PARTIALS, lib.ff_rows_column_tiles(m))
-    ws = torch.empty(lib.ff_rows_workspace_floats(parts, m, f),
+    ws = torch.empty(lib.ff_rows_backward_workspace_floats(m, f),
                      dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
@@ -307,7 +316,7 @@ def backward_kernel_rows(x, w1, b1, w2, g, rate: float, seed: int):
     err = lib.ff_rows_backward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), parts, m, f,
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), m, f,
         *_mask_args(rate, seed), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_rows_backward")
     COUNTS_BWD_ROWS.kernel += 1

@@ -9,8 +9,10 @@ at import.  On a GPU machine run them with::
 They repeat, at small sizes, what ``chip_smoke.py`` checks at the main
 paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``):
 K1 (carry and aux, its TF32 control, lanes that take no step, no plain
-code), K2, K3a/K3b (rows), K3c/K3d (lanes), K4a/K4b, and one training step
-of each layout on the card against the CPU.
+code), K2, K3a/K3b (rows) and K3c/K3d (lanes) with the backward's TF32
+control, its ReLU gates against the forward's and its tensor-core
+instructions, K4a/K4b, and one training step of each layout on the card
+against the CPU.
 """
 
 import pytest
@@ -186,6 +188,18 @@ def test_k3_kernels_match_plain(engines, s, b, rate):
 def test_k3_rows_kernels_match_plain(engines, s, b, rate):
     r = chip_smoke.check_k3(s, b, rate, timed=False, layout="rows")
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("layout", ["lanes", "rows"])
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_k3_backward_gate_is_the_forwards(engines, layout, rate):
+    r = chip_smoke.k3_gate_probe(layout, rate, n=8)
+    assert r["ok"] and r["gates_open"] > 0, r
+
+
+@pytest.mark.parametrize("name", ["ff_rows", "ff_lanes"])
+def test_k3_backward_runs_on_the_tensor_cores(engines, name):
+    assert chip_smoke.sass_mma_count(name) > 0
 
 
 @pytest.mark.parametrize("sq,sk,b,causal", [(14, 14, 37, False),
