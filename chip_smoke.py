@@ -8,8 +8,8 @@ printing its own line (any failure exits nonzero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five kernel sources from ``dragposer_tpu_torch/csrc``
    (one ``nvcc`` each, all started together), and count the tensor-core
-   instructions (``HMMA``/``HGMMA``) in the SASS of K1, K2 and the two
-   feed-forward libraries (K3a/K3b, K3c/K3d) (0 fails);
+   instructions (``HMMA``/``HGMMA``) in the SASS of K1, K2 and each of the
+   four feed-forward kernels K3a-K3d (0 fails);
 3. K1 (drag-iteration block, 3xTF32 on the tensor cores) against its
    plain twin on the card, the carry and the aux, with a control at
    sync_k = 1 that must fail the same tolerance (K1's products in one
@@ -33,13 +33,13 @@ printing its own line (any failure exits nonzero):
    same path on the CPU (plain twins) in lockstep at one Adam step a frame
    and, at five, K2 held to its float32 twin's distance, which K2 in one
    TF32 pass must exceed;
-6. K3c/K3d (lanes feed-forward with hash dropout; K3d 3xTF32 on the
-   tensor cores) against their plain twins at S = 15, B = 512 (rate 0.1
-   and 0) and B = 4096, the kernel's own dropout mask extracted and held
-   against the hash bit for bit, with a control that must fail the same
-   tolerance (the backward twin's gradient products in one TF32 pass); the
-   gate probe: K3d's ReLU gates on knife-edge pre-activations equal to
-   K3c's bit for bit;
+6. K3c/K3d (lanes feed-forward with hash dropout, both 3xTF32 on the
+   tensor cores) against their plain twins at S = 15, B = 512 and 4096
+   (rates 0.1 and 0), timed by their own device time, the kernel's own
+   dropout mask extracted and held against the hash bit for bit, with
+   controls that must fail the same tolerance (each twin with its products
+   in one TF32 pass); the gate probe: K3d's ReLU gates on knife-edge
+   pre-activations equal to K3c's bit for bit;
 7. K4a/K4b (lanes attention core) against their plain twins at the
    training path's shapes, ``scaled_dot_product_attention`` timed beside
    them as a yardstick only;
@@ -54,8 +54,8 @@ printing its own line (any failure exits nonzero):
    given the card kernel's ReLU gates, with the gate flips counted, and a
    control (the kernels on bfloat16 operands) that the check must refuse;
 10. K3a/K3b (rows feed-forward) against their plain twins at M = 15 × 512
-    (rate 0.1 and 0) and 15 × 4096, the kernel's mask against the hash,
-    the TF32 control and the gate probe, as in 6;
+    and 15 × 4096 (rates 0.1 and 0), the kernel's mask against the hash,
+    the TF32 controls and the gate probe, as in 6;
 11. the pose-VAE trainer: ``train.vae.train(use_fk=True)`` for one epoch
     of the corpus at the recipe's batch of 64 pairs (pairs/s, loss terms,
     eval MPJPE/MPEEPE, peak memory, the checkpoint read back); the step
@@ -689,7 +689,11 @@ def k3_hidden_from_kernel(x, w1, b1, rate: float, seed: int,
                           layout: str = "lanes"):
     """The forward kernel's own hidden drop(relu(W1·x + b1)), (S, F, B) or
     (M, F) (the feature axis is dim 1 in both layouts): W2 selects D hidden
-    rows per launch and b2 = 0, so y holds them exactly."""
+    rows per launch and b2 = 0, so y holds them as the kernel's 3xTF32 FF2
+    carries them, hi + lo: about 22 of float32's 24 bits, not exactly.  Its
+    zero pattern and signs are the kernel's own (a normal h > 0 keeps a hi
+    > 0), so the ReLU gates and the keep mask read from it are exact; a use
+    that compares hidden values must allow ~2^-21 relative."""
     import torch
 
     D, F = x.shape[1], w1.shape[0]
@@ -723,11 +727,12 @@ def k3_mask_from_kernel(S: int, B: int, rate: float, seed: int,
 
 def k3_within_tol(got, ref) -> tuple:
     """(max abs error by name, every output within K3_TOL and finite) of
-    (y, dx, dW1, db1, dW2, db2) or of the five gradients alone."""
+    (y, dx, dW1, db1, dW2, db2), of the five gradients alone or of (y,)."""
     import torch
 
+    names = ("y", "dx", "dw1", "db1", "dw2", "db2")
     errs, ok = {}, True
-    for name, a, r in zip(("y", "dx", "dw1", "db1", "dw2", "db2")[-len(got):],
+    for name, a, r in zip(names[:1] if len(got) == 1 else names[-len(got):],
                           got, ref):
         err = (a - r).abs()
         tol = K3_TOL["atol_rel"] * float(r.abs().max()) \
@@ -737,12 +742,20 @@ def k3_within_tol(got, ref) -> tuple:
     return errs, ok
 
 
+def k3_fwd_bound_ms(S: int, B: int, nbytes: float) -> tuple:
+    """K3a/K3c's bound: both products in 3 TF32 passes on the tensor
+    cores; or the bytes."""
+    t_ops = 3 * k3_flops(S, B) / TF32_PEAK
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def k3_bwd_bound_ms(S: int, B: int, nbytes: float) -> tuple:
-    """K3b/K3d's bound: the four gradient products in 3 TF32 passes on the
-    tensor cores, the recomputed pre-activation (one product) in float32 on
-    CUDA cores, the two units concurrent; or the bytes."""
-    product = k3_flops(S, B) / 2
-    t_ops = max(3 * 4 * product / TF32_PEAK, product / F32_PEAK)
+    """K3b/K3d's bound: the recomputed pre-activation and the four
+    gradient products, five products in 3 TF32 passes on the tensor cores;
+    or the bytes."""
+    t_ops = 3 * 5 * (k3_flops(S, B) / 2) / TF32_PEAK
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -754,8 +767,9 @@ def check_k3(S: int, B: int, rate: float, seed: int = 4242,
     """The feed-forward kernels of ``layout`` (K3c/K3d, or K3a/K3b on the
     S·B rows) against their plain twins on the card: y, the hidden's zero
     pattern (extracted from the kernel) and all five gradients; and the
-    backward's control, the float32 twin with its four gradient products in
-    one TF32 pass, which K3_TOL must refuse."""
+    controls, the float32 twins with their products in one TF32 pass
+    (forward: W1·x and W2·h; backward: pre and the four gradient products),
+    which K3_TOL must refuse."""
     import torch
 
     from dragposer_tpu_torch.ops.temporal_fused import matmul_tf32
@@ -776,11 +790,17 @@ def check_k3(S: int, B: int, rate: float, seed: int = 4242,
         torch.cuda.synchronize()
     control = k3_fn(layout, "bwd_plain")(x, w1, b1, w2, gy, rate, seed,
                                          mm=matmul_tf32)
+    fwd_control = k3_fn(layout, "fwd_plain")(x, w1, b1, w2, b2, rate, seed,
+                                             mm=matmul_tf32)
     errs, ok = k3_within_tol((y, *grads), (y_ref, *grads_ref))
     control_errs, control_ok = k3_within_tol(control, grads_ref)
+    fwd_control_errs, fwd_control_ok = k3_within_tol((fwd_control,),
+                                                     (y_ref,))
     res = {"max_abs_err": errs, "bwd_tf32_control_max_abs_err": control_errs,
-           "bwd_tf32_control_refused": not control_ok}
-    res["ok"] = ok and not control_ok
+           "bwd_tf32_control_refused": not control_ok,
+           "fwd_tf32_control_max_abs_err": fwd_control_errs["y"],
+           "fwd_tf32_control_refused": not fwd_control_ok}
+    res["ok"] = ok and not control_ok and not fwd_control_ok
     if rate > 0:
         got = k3_mask_from_kernel(S, B, rate, seed, device=device,
                                   layout=layout)
@@ -793,12 +813,15 @@ def check_k3(S: int, B: int, rate: float, seed: int = 4242,
             cuda_ms(fwd_p, reps)
         res["bwd_ms"], res["bwd_plain_ms"] = cuda_ms(bwd_k, reps), \
             cuda_ms(bwd_p, reps)
+        res["fwd_device_ms"] = device_ms(fwd_k)
         res["bwd_device_ms"] = device_ms(bwd_k)
         wbytes = 4 * (w1.numel() + b1.numel() + w2.numel() + b2.numel())
         act = 4 * x.numel()
         flops = k3_flops(S, B)
-        res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(
-            flops, 2 * act + wbytes)
+        res["fwd_bound_ms"], res["fwd_bound_by"] = k3_fwd_bound_ms(
+            S, B, 2 * act + wbytes)
+        res["fwd_bound_f32_cuda_core_ms"] = bound_ms(flops,
+                                                     2 * act + wbytes)[0]
         # in x, g and the weights; out dx and the weight gradients
         nbytes = 3 * act + 2 * wbytes
         res["bwd_bound_ms"], res["bwd_bound_by"] = k3_bwd_bound_ms(S, B,
@@ -930,15 +953,20 @@ def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
     return res
 
 
-def sass_mma_count(name: str) -> int:
+def sass_mma_count(name: str, function: str = None) -> int:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of the
-    built ``csrc/<name>.cu`` library (``cuobjdump -sass``)."""
+    built ``csrc/<name>.cu`` library (``cuobjdump -sass``); with
+    ``function``, only in the kernels whose (mangled) name contains it."""
     from dragposer_tpu_torch import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
+    if function is not None:
+        parts = re.split(r"^\s*Function\s*:\s*(\S+)", sass, flags=re.M)
+        sass = "".join(body for fn, body in zip(parts[1::2], parts[2::2])
+                       if function in fn)
     return len(re.findall(r"\bHG?MMA\b", sass))
 
 
@@ -1314,12 +1342,12 @@ def k1_figures(B: int = B_MAIN) -> dict:
 
 
 def k3_figures(calls: int = 20) -> dict:
-    """K3b's and K3d's numbers for a parent/change comparison, from
-    whatever ``dragposer_tpu_torch`` is first on the path: the card; each
-    backward's own device time per call (every kernel a call launches,
-    summed, ``torch.profiler``) and its kernel launches per call, at S = 15
-    × B = 512 and 4096, rate 0.1; then, per layout, one epoch of the
-    temporal trainer at dropout 0.1 and the device time per step of 3
+    """K3a-K3d's numbers for a parent/change comparison, from whatever
+    ``dragposer_tpu_torch`` is first on the path: the card; each forward's
+    and each backward's own device time per call (every kernel a call
+    launches, summed, ``torch.profiler``) and its kernel launches per call,
+    at S = 15 × B = 512 and 4096, rate 0.1; then, per layout, one epoch of
+    the temporal trainer at dropout 0.1 and the device time per step of 3
     profiled steps by kernel (``profile_training_steps``)."""
     import torch
 
@@ -1328,19 +1356,21 @@ def k3_figures(calls: int = 20) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), "clocks": [gpu_clocks()]}
     for layout in ("rows", "lanes"):
-        name = K3_LAYOUTS[layout]["names"][1]
+        fwd_name, bwd_name = K3_LAYOUTS[layout]["names"]
         for B in (B_TRAIN, B_PROFILED):
-            x, w1, b1, w2, _, gy = k3_inputs(15, B, 4242, layout=layout)
-            bwd = k3_fn(layout, "bwd")
-            bwd(x, w1, b1, w2, gy, 0.1, 4242)
-            prof = profile_device_time(lambda: [
-                bwd(x, w1, b1, w2, gy, 0.1, 4242) for _ in range(calls)], {})
-            res[f"{name}_15x{B}"] = {
-                "device_ms": prof["device_busy_ms"] / calls,
-                "launches_per_call": prof["kernel_launches"] / calls,
-                "event_ms": cuda_ms(lambda: bwd(x, w1, b1, w2, gy, 0.1,
-                                                4242))}
-            del x, w1, b1, w2, gy
+            x, w1, b1, w2, b2, gy = k3_inputs(15, B, 4242, layout=layout)
+            fwd, bwd = k3_fn(layout, "fwd"), k3_fn(layout, "bwd")
+            for name, call in (
+                    (fwd_name, lambda: fwd(x, w1, b1, w2, b2, 0.1, 4242)),
+                    (bwd_name, lambda: bwd(x, w1, b1, w2, gy, 0.1, 4242))):
+                call()
+                prof = profile_device_time(
+                    lambda: [call() for _ in range(calls)], {})
+                res[f"{name}_15x{B}"] = {
+                    "device_ms": prof["device_busy_ms"] / calls,
+                    "launches_per_call": prof["kernel_launches"] / calls,
+                    "event_ms": cuda_ms(call)}
+            del x, w1, b1, w2, b2, gy
             torch.cuda.empty_cache()
     res["clocks"].append(gpu_clocks())
     data_dir = write_training_corpus()
@@ -2081,20 +2111,24 @@ def gate_probe(phase: str, layout: str) -> None:
 
 def k3_entries(r: dict, fwd_name: str, bwd_name: str, source: str,
                replaces, launches) -> list:
-    """The ``kernels`` entries of a feed-forward pair from its check."""
+    """The ``kernels`` entries of a feed-forward pair from its check: ``ms``
+    is each kernel's own device time a call (every launch of the call
+    summed), ``event_ms`` CUDA events around the wrapper."""
     return [
         {"name": fwd_name, "route": "cuda", "source": source,
          "replaces": replaces[0], "launches": launches[0],
-         "max_abs_err": r["max_abs_err"]["y"], "ms": r["fwd_ms"],
+         "max_abs_err": r["max_abs_err"]["y"], "ms": r["fwd_device_ms"],
          "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound_ms"],
-         "bound_by": r["fwd_bound_by"], "library_ms": None},
+         "bound_by": r["fwd_bound_by"], "library_ms": None,
+         "event_ms": r["fwd_ms"],
+         "bound_f32_cuda_core_ms": r["fwd_bound_f32_cuda_core_ms"]},
         {"name": bwd_name, "route": "cuda", "source": source,
          "replaces": replaces[1], "launches": launches[1],
          "max_abs_err": max(v for k, v in r["max_abs_err"].items()
                             if k != "y"),
-         "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+         "ms": r["bwd_device_ms"], "plain_ms": r["bwd_plain_ms"],
          "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
-         "library_ms": None, "device_ms": r["bwd_device_ms"],
+         "library_ms": None, "event_ms": r["bwd_ms"],
          "bound_f32_cuda_core_ms": r["bwd_bound_f32_cuda_core_ms"]}]
 
 
@@ -2134,9 +2168,13 @@ def main() -> int:
     print(f"[2] built {', '.join(n + '.cu' for n in sources)} in "
           f"{logs['_seconds']} s (nvcc -arch sm_90a); ptxas: "
           + " | ".join(ptx), flush=True)
-    for name, source in (("K1", "iter_block"), ("K2", "temporal_forward"),
-                         ("K3a/K3b", "ff_rows"), ("K3c/K3d", "ff_lanes")):
-        n_mma = sass_mma_count(source)
+    for name, source, function in (
+            ("K1", "iter_block", None), ("K2", "temporal_forward", None),
+            ("K3a", "ff_rows", "ff_fwd_kernel"),
+            ("K3b", "ff_rows", "ff_bwd_kernel"),
+            ("K3c", "ff_lanes", "ff_fwd_kernel"),
+            ("K3d", "ff_lanes", "ff_bwd_kernel")):
+        n_mma = sass_mma_count(source, function)
         print(f"[2] {name} SASS (cuobjdump -sass): {n_mma} HMMA/HGMMA "
               "instructions", flush=True)
         if n_mma == 0:
@@ -2264,9 +2302,10 @@ def main() -> int:
 
     # ---- K3 and K4 against their plain twins ----
     k3_main = k3_big = None
-    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1)):
+    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1),
+                    (B_PROFILED, 0.0)):
         clocks = gpu_clocks()
-        r = check_k3(15, B, rate)
+        r = check_k3(15, B, rate, timed=rate > 0 or B == B_TRAIN)
         r["clocks_sm_mem"] = [clocks, gpu_clocks()]
         print(f"[6] K3c/K3d S=15 B={B} rate={rate}: " + json.dumps(r),
               flush=True)
@@ -2275,7 +2314,7 @@ def main() -> int:
                  f"TF32 control: {r}")
         if (B, rate) == (B_TRAIN, 0.1):
             k3_main = r
-        elif B == B_PROFILED:
+        elif (B, rate) == (B_PROFILED, 0.1):
             k3_big = r
     gate_probe("[6]", "lanes")
     k4_main = k4_big = None
@@ -2313,9 +2352,11 @@ def main() -> int:
 
     # ---- K3a/K3b against their plain twins ----
     k3r_main = k3r_big = None
-    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1)):
+    for B, rate in ((B_TRAIN, 0.1), (B_TRAIN, 0.0), (B_PROFILED, 0.1),
+                    (B_PROFILED, 0.0)):
         clocks = gpu_clocks()
-        r = check_k3(15, B, rate, layout="rows")
+        r = check_k3(15, B, rate, timed=rate > 0 or B == B_TRAIN,
+                     layout="rows")
         r["clocks_sm_mem"] = [clocks, gpu_clocks()]
         print(f"[10] K3a/K3b M=15x{B}={15 * B} rate={rate}: " + json.dumps(r),
               flush=True)
@@ -2324,7 +2365,7 @@ def main() -> int:
                  f"passes the TF32 control: {r}")
         if (B, rate) == (B_TRAIN, 0.1):
             k3r_main = r
-        elif B == B_PROFILED:
+        elif (B, rate) == (B_PROFILED, 0.1):
             k3r_big = r
     gate_probe("[10]", "rows")
 
@@ -2417,7 +2458,8 @@ def main() -> int:
     ]
     times = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
              "bwd_plain_ms", "bwd_bound_ms")
-    k3_times = (*times, "bwd_device_ms", "bwd_bound_f32_cuda_core_ms")
+    k3_times = (*times, "fwd_device_ms", "bwd_device_ms",
+                "fwd_bound_f32_cuda_core_ms", "bwd_bound_f32_cuda_core_ms")
     print("[15] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
               "K3a/K3b": {k: k3r_big[k] for k in k3_times},

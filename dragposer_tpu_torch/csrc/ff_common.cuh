@@ -17,33 +17,41 @@
 //                           hashes to hash_base + f·lay.fstride (uint32)
 // so the mask is the TPU kernel's bit for bit whatever this kernel's tiling.
 //
-// What bounds it on the H100: arithmetic.  Each column costs 2·D·F·2 FLOP
-// forward, the backward five products of that size; the bytes (x, g, y, dx
-// and the ~0.8 MB of weights) are two orders of magnitude below the float32
-// bound.  The (columns, F) hidden is never stored.
+// What bounds it on the H100: tensor-core operations.  Each column costs
+// 2·D·F·2 FLOP forward, the backward five products of that size, every
+// product run as 3xTF32 (three TF32 passes); the bytes (x, g, y, dx and
+// the ~0.8 MB of weights) are two orders of magnitude below that bound.
+// The (columns, F) hidden is never stored.
 //
 // What the design does about it:
 // * a block owns BN = 64 columns at a time; the hidden is produced in
-//   chunks of FC = 64 rows in shared memory and consumed at once, so no
-//   hidden value and no mask bit reaches device memory;
-// * every pre-activation is the same fmaf chain over k = 0..D-1 followed by
-//   "+ b1" (pre_tile), on CUDA cores in the forward and in the backward, so
-//   the ReLU gate of the backward equals the forward's bit for bit;
-// * the forward (ff_fwd_kernel): float32 on CUDA cores, register tiles of
-//   4×4 (hidden) and 3×4 (outputs) a thread; a launch may split the hidden
-//   chunks over gridDim.y (partial sums, then a fixed-order sum) to put
-//   enough blocks in flight when there are few column tiles;
+//   chunks of FC = 64 rows and consumed at once, so no hidden value and no
+//   mask bit reaches device memory;
+// * every product runs on the tensor cores as 3xTF32 (mma.sync.m16n8k8,
+//   operands split hi + lo, lo·hi + hi·lo + hi·hi from a zero accumulator
+//   over K ≤ 64, then added in float32): float32 accuracy;
+// * every pre-activation of all four kernels is formed by one routine,
+//   pre_mma (preᵀ = xᵀ·W1ᵀ, then "+ b1"), with the same operand roles,
+//   k order, passes and warp-to-fragment mapping in the forward and in the
+//   backward, so the ReLU gate of the backward equals the forward's bit for
+//   bit;
+// * the forward (ff_fwd_kernel) keeps the hidden chunk in registers between
+//   its two products (FF1's accumulator fragment is FF2's A fragment), the
+//   next chunk's weights arrive by cp.async during the current one, and
+//   when column tiles are few a thread-block cluster splits the hidden and
+//   adds its partials through distributed shared memory in rank order: one
+//   launch a call in both layouts;
 // * the backward (ff_bwd_kernel) forms each hidden element once and feeds
-//   it to all four gradient products, which run on the tensor cores as
-//   3xTF32 (mma.sync.m16n8k8, float32 accuracy); the weight gradients sum
-//   over all columns, dx over all hidden rows: the TPU carried those sums
-//   across its sequential grid, here each block writes partials and
+//   it to all four gradient products; the weight gradients sum over all
+//   columns, dx over all hidden rows: the TPU carried those sums across its
+//   sequential grid, here each block writes partials and
 //   ff_bwd_reduce_kernel adds them in a fixed order: deterministic, no
 //   atomics.  Two launches a call.
 // The TPU kernels ran bf16 operands by default; the port is float32
 // throughout.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,7 +61,16 @@ constexpr int D = 48;     // d_model
 constexpr int BN = 64;    // columns per tile
 constexpr int FC = 64;    // hidden rows per chunk
 constexpr int NT = 256;   // threads per block
+constexpr int SMS = 132;  // H100 SXM
 constexpr uint32_t TILE_MIX = 0x7FEB352Du;
+
+// Shared-memory row strides (floats) that make every fragment read free of
+// bank conflicts: lanes read (k = t, n or m = g) of [k][·] arrays at a
+// stride ≡ 8 or 24 (mod 32), float2 pairs (m or n = g, k = 2t) of [·][k]
+// arrays at ≡ 8 or 24 too.
+constexpr int LD_K8 = 72;   // Gs [d][j], W2 [d][f], DP [f][j]
+constexpr int LD_T = 56;    // XT, GT [j][d], W1 [f][d]
+constexpr int LD_HD = 68;   // HD [f][j]
 
 struct Mask {
   uint32_t seedmix;  // seed · 0x9E3779B1 mod 2^32
@@ -76,189 +93,7 @@ __device__ __forceinline__ bool keep_bit(const Mask& m, uint32_t base, int f,
   return fmix32(static_cast<uint32_t>(f) * fstride + base) >= m.thresh;
 }
 
-// pre[i][j] = (sum over k = 0..D-1, in order, of W1s[fl+i][k] · Xs[k][bl+j])
-//             + b1[fl+i].  The one place a pre-activation is computed.
-__device__ __forceinline__ void pre_tile(const float* W1s, const float* Xs,
-                                         const float* __restrict__ b1,
-                                         int fl, int bl, float pre[4][4]) {
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(Xs + k * BN + bl);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float w = W1s[(fl + i) * D + k];
-      acc[i][0] = fmaf(w, x.x, acc[i][0]);
-      acc[i][1] = fmaf(w, x.y, acc[i][1]);
-      acc[i][2] = fmaf(w, x.z, acc[i][2]);
-      acc[i][3] = fmaf(w, x.w, acc[i][3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float bias = __ldg(b1 + fl + i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pre[i][j] = acc[i][j] + bias;
-  }
-}
-
-// Where tile t lies: feature k of slot j < n at first + k·kstride +
-// j·jstride.
-struct TileView {
-  size_t first;
-  int kstride, jstride, n;
-};
-
-// Xs[k·xs_ld + j] = feature k of slot j of tile t, 0 past the end;
-// XsT[j·xt_ld + k] the same values transposed, when given.
-template <class L>
-__device__ __forceinline__ void load_tile(const L& lay, float* Xs, float* XsT,
-                                          const float* __restrict__ src,
-                                          int t, int xs_ld = BN,
-                                          int xt_ld = D) {
-  constexpr int PER = D * BN / NT;  // all loads in flight, then the stores
-  const TileView v = lay.tile_view(t);
-  float val[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int idx = threadIdx.x + r * NT;
-    const int k = L::kMinor ? idx % D : idx / BN;
-    const int j = L::kMinor ? idx / D : idx % BN;
-    val[r] = j < v.n ? src[v.first + k * v.kstride + j * v.jstride] : 0.f;
-  }
-  // feature-fastest tiles go to XsT first and reach Xs through shared
-  // memory: stored straight to Xs, a warp's 32 features would hit one bank
-  const bool via_t = L::kMinor && XsT != nullptr;
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int idx = threadIdx.x + r * NT;
-    const int k = L::kMinor ? idx % D : idx / BN;
-    const int j = L::kMinor ? idx / D : idx % BN;
-    if (!via_t) Xs[k * xs_ld + j] = val[r];
-    if (XsT != nullptr) XsT[j * xt_ld + k] = val[r];
-  }
-  if (via_t) {
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int idx = threadIdx.x + r * NT;
-      Xs[(idx / BN) * xs_ld + idx % BN] = XsT[(idx % BN) * xt_ld + idx / BN];
-    }
-  }
-}
-
-// W1s[f][k] = w1[f0 + f][k];  W2s[d][f] = w2[d][f0 + f]
-__device__ __forceinline__ void load_weights(float* W1s, float* W2s,
-                                             const float* __restrict__ w1,
-                                             const float* __restrict__ w2,
-                                             int F, int f0) {
-  for (int idx = threadIdx.x; idx < FC * D; idx += NT)
-    W1s[idx] = __ldg(w1 + static_cast<size_t>(f0) * D + idx);
-  for (int idx = threadIdx.x; idx < D * FC; idx += NT)
-    W2s[idx] = __ldg(w2 + static_cast<size_t>(idx / FC) * F + f0 + idx % FC);
-}
-
-// dpre for one element: the forward's gate and mask replayed.
-__device__ __forceinline__ float dpre_of(const Mask& m, float pre, float dhd,
-                                         bool keep) {
-  if (!(pre > 0.f)) return 0.f;
-  if (!m.use) return dhd;
-  return keep ? dhd * m.scale : 0.f;
-}
-
-// This thread's four columns of tile t and their hash bases.
-template <class L>
-__device__ __forceinline__ void thread_cols(const L& lay, const Mask& m, int t,
-                                            int bl, int col[4],
-                                            uint32_t base[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    col[j] = lay.col(t, bl + j);
-    base[j] = lay.hash_base(col[j] < 0 ? 0 : col[j], m.seedmix);
-  }
-}
-
-// Hidden chunks [begin, end) of split blockIdx.y of gridDim.y.
-__device__ __forceinline__ void chunk_range(int F, int& begin, int& end) {
-  const int n = F / FC;
-  begin = n * static_cast<int>(blockIdx.y) / static_cast<int>(gridDim.y);
-  end = n * (static_cast<int>(blockIdx.y) + 1) / static_cast<int>(gridDim.y);
-}
-
-// The forward.  grid (lay.tiles(), splits).  One split: out = y.  Several:
-// out holds one partial of y (no b2) per split, each laid out like y.
-template <class L>
-__global__ void __launch_bounds__(NT)
-ff_fwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ out, int F,
-           Mask m) {
-  extern __shared__ float4 smem4[];
-  float* Xs = reinterpret_cast<float*>(smem4);  // D x BN
-  float* W1s = Xs + D * BN;                     // FC x D
-  float* W2s = W1s + FC * D;                    // D x FC
-  float* Hs = W2s + D * FC;                     // FC x BN
-  const int t = blockIdx.x, tid = threadIdx.x;
-  const int bl = (tid % 16) * 4, fl = (tid / 16) * 4, dl = (tid / 16) * 3;
-  load_tile(lay, Xs, nullptr, x, t);
-  int col[4];
-  uint32_t base[4];
-  thread_cols(lay, m, t, bl, col, base);
-  int c_begin, c_end;
-  chunk_range(F, c_begin, c_end);
-  float acc[3][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int f0 = ch * FC;
-    __syncthreads();
-    load_weights(W1s, W2s, w1, w2, F, f0);
-    __syncthreads();
-    float pre[4][4];
-    pre_tile(W1s, Xs, b1 + f0, fl, bl, pre);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float h = fmaxf(pre[i][j], 0.f);
-        if (m.use)
-          h = keep_bit(m, base[j], f0 + fl + i, lay.fstride) ? h * m.scale
-                                                             : 0.f;
-        Hs[(fl + i) * BN + bl + j] = h;
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int f = 0; f < FC; ++f) {
-      const float4 h = *reinterpret_cast<const float4*>(Hs + f * BN + bl);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float w = W2s[(dl + i) * FC + f];
-        acc[i][0] = fmaf(w, h.x, acc[i][0]);
-        acc[i][1] = fmaf(w, h.y, acc[i][1]);
-        acc[i][2] = fmaf(w, h.z, acc[i][2]);
-        acc[i][3] = fmaf(w, h.w, acc[i][3]);
-      }
-    }
-  }
-  const bool whole = gridDim.y == 1;
-  float* dst = out + static_cast<size_t>(blockIdx.y) * lay.cols() * D;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float bias = whole ? __ldg(b2 + dl + i) : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (col[j] >= 0) dst[lay.offset(dl + i, col[j])] =
-          whole ? acc[i][j] + bias : acc[i][j];
-  }
-}
-
-// ---- The backward: one pass over the hidden, 3xTF32 on mma.sync ----
+// ---- 3xTF32 on mma.sync ----
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
 // zero: cvt.rna.tf32.f32 for finite x, in two integer operations.
@@ -278,6 +113,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a·b as 3xTF32 passes, in this order: lo·hi, hi·lo, hi·hi.
+__device__ __forceinline__ void mma3x(float (&d)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[2],
+                                      const uint32_t (&bl)[2]) {
+  mma(d, al, bh);
+  mma(d, ah, bl);
+  mma(d, ah, bh);
 }
 
 // c[mi][ni] += A·B over KS k-steps of 8 for the warp's MT × NT tiles of
@@ -309,11 +154,8 @@ __device__ __forceinline__ void mma3(float (&c)[MT][NT][4], FA a, FB b) {
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        mma(s[mi][ni], al[mi], bh[ni]);
-        mma(s[mi][ni], ah[mi], bl[ni]);
-        mma(s[mi][ni], ah[mi], bh[ni]);
-      }
+      for (int ni = 0; ni < NT; ++ni)
+        mma3x(s[mi][ni], ah[mi], al[mi], bh[ni], bl[ni]);
   }
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
@@ -323,26 +165,320 @@ __device__ __forceinline__ void mma3(float (&c)[MT][NT][4], FA a, FB b) {
       for (int e = 0; e < 4; ++e) c[mi][ni][e] += s[mi][ni][e];
 }
 
+// ---- The pre-activation: one routine for the forward and the backward ----
+
+// The A fragments of one m-tile of 16 columns of xᵀ (XT [j][d], LD_T),
+// over the D/8 k-steps.  Within k-step s the contraction index pairs
+// features, k = t ↔ d = 8s + 2t and k = t + 4 ↔ d = 8s + 2t + 1, so each
+// row's two values are one float2 read.
+struct XFrag {
+  float v[D / 8][4];
+};
+
+__device__ __forceinline__ void x_frag(XFrag& a, const float* XT, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < D / 8; ++s) {
+    const float2 r0 = *reinterpret_cast<const float2*>(
+        XT + (m0 + g) * LD_T + 8 * s + 2 * t);
+    const float2 r1 = *reinterpret_cast<const float2*>(
+        XT + (m0 + g + 8) * LD_T + 8 * s + 2 * t);
+    a.v[s][0] = r0.x;   // (row g,     k = t)
+    a.v[s][1] = r1.x;   // (row g + 8, k = t)
+    a.v[s][2] = r0.y;   // (row g,     k = t + 4)
+    a.v[s][3] = r1.y;   // (row g + 8, k = t + 4)
+  }
+}
+
+// preᵀ = xᵀ·W1ᵀ + b1 for NF n-tiles of 8 hidden rows from chunk row n0:
+// pre[ni][e] is (column m0 + g + 8·(e >> 1), hidden row n0 + 8·ni + 2t +
+// (e & 1)) of the m-tile whose fragments `a` holds.  W1c [f][d] (LD_T) is
+// the chunk's W1 and b1 its biases.  The product is 3xTF32 over the D/8
+// k-steps in order from a zero accumulator (K = 48: one chain), passes
+// lo·hi, hi·lo, hi·hi, then "+ b1" once in float32.  This is the only
+// place any FF kernel forms a pre-activation, so the backward's gates are
+// the forward's bit for bit.
+template <int NF>
+__device__ __forceinline__ void pre_mma(float (&pre)[NF][4], const XFrag& a,
+                                        const float* W1c,
+                                        const float* __restrict__ b1,
+                                        int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float s[NF][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a.v[ks][i], ah[i], al[i]);
+#pragma unroll
+    for (int ni = 0; ni < NF; ++ni) {
+      const float2 w = *reinterpret_cast<const float2*>(
+          W1c + (n0 + 8 * ni + g) * LD_T + 8 * ks + 2 * t);
+      uint32_t bh[2], bl[2];
+      split(w.x, bh[0], bl[0]);
+      split(w.y, bh[1], bl[1]);
+      mma3x(s[ni], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int ni = 0; ni < NF; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pre[ni][e] = s[ni][e] + __ldg(b1 + n0 + 8 * ni + 2 * t + (e & 1));
+}
+
+// Where tile t lies: feature k of slot j < n at first + k·kstride +
+// j·jstride.
+struct TileView {
+  size_t first;
+  int kstride, jstride, n;
+};
+
+// XT[j·xt_ld + k] = feature k of slot j of tile t, 0 past the end; with
+// Xs, also Xs[k·xs_ld + j], the same values transposed.
+template <class L>
+__device__ __forceinline__ void load_tile(const L& lay, float* Xs, float* XT,
+                                          const float* __restrict__ src,
+                                          int t, int xs_ld = BN,
+                                          int xt_ld = LD_T) {
+  constexpr int PER = D * BN / NT;  // all loads in flight, then the stores
+  const TileView v = lay.tile_view(t);
+  float val[PER];
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const int idx = threadIdx.x + r * NT;
+    const int k = L::kMinor ? idx % D : idx / BN;
+    const int j = L::kMinor ? idx / D : idx % BN;
+    val[r] = j < v.n ? src[v.first + k * v.kstride + j * v.jstride] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const int idx = threadIdx.x + r * NT;
+    const int k = L::kMinor ? idx % D : idx / BN;
+    const int j = L::kMinor ? idx / D : idx % BN;
+    XT[j * xt_ld + k] = val[r];
+    if (Xs != nullptr && !L::kMinor) Xs[k * xs_ld + j] = val[r];
+  }
+  // feature-fastest tiles reach Xs through XT: stored straight to Xs, a
+  // warp's 32 features would hit one bank
+  if (Xs != nullptr && L::kMinor) {
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int idx = threadIdx.x + r * NT;
+      Xs[(idx / BN) * xs_ld + idx % BN] = XT[(idx % BN) * xt_ld + idx / BN];
+    }
+  }
+}
+
+// The flat columns of this thread's two fragment rows (slots m0 + g and
+// m0 + g + 8 of tile t, -1 past the end) and their hash bases.
+template <class L>
+__device__ __forceinline__ void frag_cols(const L& lay, const Mask& m, int t,
+                                          int m0, int col[2],
+                                          uint32_t base[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    col[h] = lay.col(t, m0 + g + 8 * h);
+    base[h] = lay.hash_base(col[h] < 0 ? 0 : col[h], m.seedmix);
+  }
+}
+
+// dpre for one element: the forward's gate and mask replayed.
+__device__ __forceinline__ float dpre_of(const Mask& m, float pre, float dhd,
+                                         bool keep) {
+  if (!(pre > 0.f)) return 0.f;
+  if (!m.use) return dhd;
+  return keep ? dhd * m.scale : 0.f;
+}
+
+// ---- The forward ----
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem));
+}
+
+// One chunk's weights in shared memory: W1c [f][d] (LD_T), then W2c [d][f]
+// (LD_K8).
+constexpr int W_STAGE = FC * LD_T + D * LD_K8;
+constexpr size_t FWD_SMEM = (BN * LD_T + 2 * W_STAGE) * 4;
+
+// The weights of the chunk from hidden row f0 into `stage`, 16 bytes a
+// copy, as one cp.async group.
+__device__ __forceinline__ void fetch_chunk(float* stage,
+                                            const float* __restrict__ w1,
+                                            const float* __restrict__ w2,
+                                            int F, int f0) {
+  constexpr int PER = FC * D / 4 / NT;
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const int q = threadIdx.x + r * NT;
+    cp_async16(stage + (q / (D / 4)) * LD_T + (q % (D / 4)) * 4,
+               w1 + static_cast<size_t>(f0) * D + 4 * q);
+    cp_async16(stage + FC * LD_T + (q / (FC / 4)) * LD_K8 + (q % (FC / 4)) * 4,
+               w2 + static_cast<size_t>(q / (FC / 4)) * F + f0 +
+                   (q % (FC / 4)) * 4);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The forward.  A cluster of CS blocks owns column tile blockIdx.x / CS,
+// rank r the hidden chunks [r·n/CS, (r + 1)·n/CS) of n = F/FC.  Warp w
+// takes the columns of m-tile w >> 1 (16) and the hidden rows of half
+// w & 1 (32) of each chunk:
+//   1. preᵀ by pre_mma; the keep bits (hashes) beforehand, integer work
+//      the scheduler can put between the products;
+//   2. h = drop(relu(pre)) in registers, split, as FF2's A fragments: FF1's
+//      n-tile i (hidden rows 8i + 2t, 2t + 1 at columns g, g + 8) is FF2's
+//      k-step i with k = t ↔ hidden row 2t and k = t + 4 ↔ 2t + 1, so W2c
+//      is read as float2 pairs (d, 2t);
+//   3. yᵀ += hᵀ·W2ᵀ over the warp's 32 hidden rows (3xTF32 from zero, then
+//      added in float32).
+// The two halves' partials meet in shared memory (half 0 + half 1), the
+// ranks' sums through distributed shared memory in rank order, + b2.
+template <class L>
+__global__ void __launch_bounds__(NT, 2)
+ff_fwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, float* __restrict__ y, int F,
+              Mask m) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ float4 smem4[];
+  float* XT = reinterpret_cast<float*>(smem4);  // BN x LD_T, then yᵀ sums
+  float* W = XT + BN * LD_T;                    // 2 stages of W_STAGE
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = (warp >> 1) * 16, half = warp & 1, n0 = half * 32;
+  const int t = blockIdx.x / CS;
+  const int n = F / FC, c_begin = n * rank / CS, c_end = n * (rank + 1) / CS;
+  if (c_begin < c_end) fetch_chunk(W, w1, w2, F, c_begin * FC);
+  load_tile(lay, nullptr, XT, x, t);
+  __syncthreads();
+  XFrag a;
+  x_frag(a, XT, m0);
+  int col[2];
+  uint32_t base[2];
+  frag_cols(lay, m, t, m0, col, base);
+  float yacc[D / 8][4] = {};
+  for (int c = c_begin; c < c_end; ++c) {
+    const float* W1c = W + ((c - c_begin) & 1) * W_STAGE;
+    const float* W2c = W1c + FC * LD_T;
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // chunk c visible; the other stage free
+    if (c + 1 < c_end)
+      fetch_chunk(W + ((c + 1 - c_begin) & 1) * W_STAGE, w1, w2, F,
+                  (c + 1) * FC);
+    const int f0 = c * FC;
+    uint32_t keep = 0xFFFFu;
+    if (m.use) {
+      keep = 0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        keep |= static_cast<uint32_t>(keep_bit(
+                    m, base[(i & 3) >> 1],
+                    f0 + n0 + 8 * (i >> 2) + 2 * tq + (i & 1), lay.fstride))
+                << i;
+    }
+    float pre[4][4];
+    pre_mma<4>(pre, a, W1c, b1 + f0, n0);
+    float s[D / 8][4] = {};
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      float h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] = fmaxf(pre[ni][e], 0.f);
+        if (m.use) h[e] = (keep >> (ni * 4 + e)) & 1u ? h[e] * m.scale : 0.f;
+      }
+      uint32_t ah[4], al[4];
+      split(h[0], ah[0], al[0]);   // (row g,     k = t)
+      split(h[2], ah[1], al[1]);   // (row g + 8, k = t)
+      split(h[1], ah[2], al[2]);   // (row g,     k = t + 4)
+      split(h[3], ah[3], al[3]);   // (row g + 8, k = t + 4)
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float2 w = *reinterpret_cast<const float2*>(
+            W2c + (8 * nd + gq) * LD_K8 + n0 + 8 * ni + 2 * tq);
+        uint32_t bh[2], bl[2];
+        split(w.x, bh[0], bl[0]);
+        split(w.y, bh[1], bl[1]);
+        mma3x(s[nd], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[nd][e] += s[nd][e];
+  }
+  // yᵀ (BN x D, stride LD_T) in XT: half 1's partial, then half 0 adds its
+  // own in front of it
+  float* Ys = XT;
+  __syncthreads();
+#pragma unroll
+  for (int pass = 1; pass >= 0; --pass) {
+    if (half == pass)
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* at = reinterpret_cast<float2*>(
+              Ys + (m0 + gq + 8 * h) * LD_T + 8 * nd + 2 * tq);
+          float2 v = make_float2(yacc[nd][2 * h], yacc[nd][2 * h + 1]);
+          if (pass == 0) {
+            v.x += at->x;
+            v.y += at->y;
+          }
+          *at = v;
+        }
+    __syncthreads();
+  }
+  cluster.sync();
+  // rank r stores its share of the tile: the ranks' sums in rank order
+  constexpr int ALL = BN * D;
+  for (int idx = ALL * rank / CS + tid; idx < ALL * (rank + 1) / CS;
+       idx += NT) {
+    const int j = L::kMinor ? idx / D : idx % BN;
+    const int d = L::kMinor ? idx % D : idx / BN;
+    const int c = lay.col(t, j);
+    if (c < 0) continue;
+    float acc = 0.f;
+    for (int q = 0; q < CS; ++q)
+      acc += cluster.map_shared_rank(Ys, q)[j * LD_T + d];
+    y[lay.offset(d, c)] = acc + __ldg(b2 + d);
+  }
+  cluster.sync();  // no block leaves while its sums are read
+}
+
+// Blocks a column tile of the forward takes: a cluster that splits the
+// hidden when tiles are few, so that the launch still fills the SMs (two
+// blocks an SM) and its last wave is short.
+inline int fwd_cluster(int tiles, int F) {
+  int cs = tiles >= 8 * SMS ? 1 : (2 * tiles >= SMS ? 2 : 4);
+  while (cs > F / FC) cs /= 2;
+  return cs;
+}
+
+// ---- The backward: one pass over the hidden, 3xTF32 on mma.sync ----
+
 constexpr int HCH = 4;      // hidden chunks a backward block owns
-constexpr int SMS = 132;    // H100 SXM
-// Shared-memory row strides (floats) that make every fragment read free of
-// bank conflicts: lanes read (k = t, n or m = g) of [k][·] arrays at a
-// stride ≡ 8 or 24 (mod 32), (m = g, k = t) of [m][·] arrays at ≡ 4.
-constexpr int LD_K8 = 72;   // Gs [d][j], W2s [d][f], DP [f][j]
-constexpr int LD_T = 56;    // XT, GT [j][d], W1d [f][d]
-constexpr int LD_HD = 68;   // HD [f][j]
 // Per hidden chunk of a block: its dW1 (FC, D), dW2ᵀ (FC, D) and db1 (FC)
 // sums over the block's column tiles, the first two in the order of the
 // accumulator fragments (entry (((warp & 3)·6 + mi·3 + ni)·4 + e)·32 +
 // lane), so that each thread adds to its own conflict-free words.
 constexpr int SUM_PER = 2 * FC * D + FC;
 constexpr size_t BWD_SMEM =
-    (D * BN + BN * LD_T + D * LD_K8 + BN * LD_T + FC * D + FC * LD_T +
-     D * LD_K8 + FC * LD_K8 + FC * LD_HD + HCH * SUM_PER) * 4;
+    (BN * LD_T + D * LD_K8 + BN * LD_T + FC * LD_T + D * LD_K8 +
+     FC * LD_K8 + FC * LD_HD + 4 * FC + HCH * SUM_PER) * 4;
 
-// DP holds dh, then dpre, at [f][j]; j's bit 2 is flipped on rows with
-// f's bit 2 set, so that both the k = f reads of dx and the m = f reads of
-// dW1 are conflict-free.
+// DP holds dpre at [f][j]; j's bit 2 is flipped on rows with f's bit 2
+// set, so that both the k = f reads of dx and the m = f reads of dW1 are
+// conflict-free.
 __device__ __forceinline__ int dp_at(int f, int j) {
   return f * LD_K8 + (j ^ (f & 4));
 }
@@ -365,14 +501,12 @@ __device__ __forceinline__ void fetch_weights(float4 (&w)[2 * W4],
   }
 }
 
-// W1s[f][k] (pre_tile's layout), W1d[f][k] and W2s[d][f] from fetch_weights.
+// W1d[f][k] (pre_mma's layout) and W2s[d][f] from fetch_weights.
 __device__ __forceinline__ void stage_weights(const float4 (&w)[2 * W4],
-                                              float* W1s, float* W1d,
-                                              float* W2s) {
+                                              float* W1d, float* W2s) {
 #pragma unroll
   for (int r = 0; r < W4; ++r) {
     const int q = threadIdx.x + r * NT;
-    *reinterpret_cast<float4*>(W1s + 4 * q) = w[r];
     *reinterpret_cast<float4*>(W1d + (4 * q / D) * LD_T + 4 * q % D) = w[r];
     *reinterpret_cast<float4*>(W2s + (q / (FC / 4)) * LD_K8 +
                                (q % (FC / 4)) * 4) = w[W4 + r];
@@ -388,19 +522,19 @@ __host__ __device__ __forceinline__ long long wpart_floats(int F) {
 // The backward: (dx, dW1, db1, dW2, db2) at x for output gradient g, the
 // hidden recomputed.  grid (CG column groups, HG hidden groups): block
 // (cg, hg) takes the column tiles of cg in turn and, for each, the HCH
-// hidden chunks of hg.  Per (tile, chunk):
-//   1. dh = W2ᵀ·g on the tensor cores; pre = W1·x + b1 by pre_tile, the
-//      forward's own arithmetic, so the gate is the forward's bit for bit;
-//   2. dpre = gate · mask · dh and hd = relu(pre) · mask on CUDA cores,
-//      db1 summed over the tile's columns;
+// hidden chunks of hg.  Per (tile, chunk), warp w on the forward's
+// fragments (columns of m-tile w >> 1, hidden rows of half w & 1):
+//   1. dhᵀ = gᵀ·W2 and preᵀ by pre_mma, the forward's own arithmetic, so
+//      the gate is the forward's bit for bit, both on the tensor cores;
+//   2. dpre = gate · mask · dh and hd = relu(pre) · mask in registers,
+//      stored to DP and HD; db1 summed over the tile's columns;
 //   3. dx += W1ᵀ·dpre (registers, over the chunks), then dW1 = dpre·xᵀ
 //      (warps 0-3) and dW2ᵀ = hd·gᵀ (warps 4-7) over the tile's columns,
 //      added to the chunk's sums in shared memory.
-// Each hidden element is formed once.  One block an SM (BWD_SMEM); a step
-// is limited by shared-memory bandwidth (pre_tile's reads most) and by
-// instruction throughput.  dx goes out as one partial per hidden group
-// (laid out like x), the weight gradients as one partial per column group
-// (wpart_floats); ff_bwd_reduce_kernel adds them in order.
+// Each hidden element is formed once.  One block an SM (BWD_SMEM).  dx
+// goes out as one partial per hidden group (laid out like x), the weight
+// gradients as one partial per column group (wpart_floats);
+// ff_bwd_reduce_kernel adds them in order.
 template <class L>
 __global__ void __launch_bounds__(NT, 1)
 ff_bwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
@@ -408,19 +542,17 @@ ff_bwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ g, float* __restrict__ dx_parts,
               float* __restrict__ w_parts, int F, Mask m) {
   extern __shared__ float4 smem4[];
-  float* Xs = reinterpret_cast<float*>(smem4);  // D x BN (pre_tile)
-  float* XT = Xs + D * BN;                      // BN x LD_T
+  float* XT = reinterpret_cast<float*>(smem4);  // BN x LD_T
   float* Gs = XT + BN * LD_T;                   // D x LD_K8
   float* GT = Gs + D * LD_K8;                   // BN x LD_T
-  float* W1s = GT + BN * LD_T;                  // FC x D (pre_tile)
-  float* W1d = W1s + FC * D;                    // FC x LD_T
+  float* W1d = GT + BN * LD_T;                  // FC x LD_T (pre_mma)
   float* W2s = W1d + FC * LD_T;                 // D x LD_K8
   float* DP = W2s + D * LD_K8;                  // FC x LD_K8, dp_at
   float* HD = DP + FC * LD_K8;                  // FC x LD_HD
-  float* sums = HD + FC * LD_HD;                // HCH x SUM_PER
+  float* DB1 = HD + FC * LD_HD;                 // 4 x FC, db1 by m-tile
+  float* sums = DB1 + 4 * FC;                   // HCH x SUM_PER
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int bl = (tid % 16) * 4, fl = (tid / 16) * 4;
   const int T = lay.tiles(), cg = blockIdx.x, hg = blockIdx.y;
   const int t_begin =
       static_cast<int>(static_cast<long long>(T) * cg / gridDim.x);
@@ -428,9 +560,9 @@ ff_bwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
       static_cast<int>(static_cast<long long>(T) * (cg + 1) / gridDim.x);
   const int c_begin = hg * HCH;
   const int nc = min(F / FC - c_begin, HCH);
-  // the warp's tiles: dh m-tile mt (16 hidden rows) and n-tiles nh..
-  // (columns); dx m-tile mt (16 columns) and n-tiles nw.. (features); dW
-  // m-tiles from row mw (32 hidden rows) and n-tiles nw..
+  // the warp's tiles: dhᵀ and preᵀ m-tile mt (16 columns) and n-tiles
+  // nh.. (hidden rows); dx m-tile mt (16 columns) and n-tiles nw..
+  // (features); dW m-tiles from row mw (32 hidden rows) and n-tiles nw..
   const int mt = warp >> 1, nh = (warp & 1) * 4, nw = (warp & 1) * 3;
   const int mw = ((warp & 3) >> 1) * 32;
   for (int i = tid; i < HCH * SUM_PER; i += NT) sums[i] = 0.f;
@@ -441,7 +573,7 @@ ff_bwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
   fetch_weights(wnext, w1, w2, F, c_begin * FC);
   for (int t = t_begin; t < t_end; ++t) {
     __syncthreads();
-    load_tile(lay, Xs, XT, x, t, BN, LD_T);
+    load_tile(lay, nullptr, XT, x, t);
     load_tile(lay, Gs, GT, g, t, LD_K8, LD_T);
     __syncthreads();
     if (hg == 0 && tid < 4 * D) {  // db2: 4 threads a feature, then a tree
@@ -451,75 +583,65 @@ ff_bwd_kernel(L lay, const float* __restrict__ x, const float* __restrict__ w1,
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       db2 += s + __shfl_xor_sync(0xffffffffu, s, 2);
     }
-    int col[4];
-    uint32_t base[4];
-    thread_cols(lay, m, t, bl, col, base);
+    int col[2];
+    uint32_t base[2];
+    frag_cols(lay, m, t, mt * 16, col, base);
     float cdx[1][3][4] = {};
     for (int c = 0; c < nc; ++c) {
       const int f0 = (c_begin + c) * FC;
       float* csum = sums + c * SUM_PER;
       __syncthreads();
-      stage_weights(wnext, W1s, W1d, W2s);
+      stage_weights(wnext, W1d, W2s);
       __syncthreads();
       fetch_weights(wnext, w1, w2, F, (c_begin + (c + 1) % nc) * FC);
-      // 1. dh = W2ᵀ·g into DP (tensor cores) and pre (CUDA cores, bound by
-      // shared memory): the two warps of each SM sub-partition take them in
-      // opposite orders, so that one's products overlap the other's pre
+      // 1. dhᵀ and preᵀ on the warp's fragments
+      float dh[1][4][4] = {};
+      mma3<1, 4, D / 8>(
+          dh, [&](int, int r, int k) { return Gs[k * LD_K8 + mt * 16 + r]; },
+          [&](int ni, int k, int n) {
+            return W2s[k * LD_K8 + (nh + ni) * 8 + n];
+          });
       float pre[4][4];
-      const bool pre_first = (warp >> 2) & 1;
-      if (pre_first) pre_tile(W1s, Xs, b1 + f0, fl, bl, pre);
       {
-        float ch[1][4][4] = {};
-        mma3<1, 4, D / 8>(
-            ch, [&](int, int r, int k) { return W2s[k * LD_K8 + mt * 16 + r]; },
-            [&](int ni, int k, int n) {
-              return Gs[k * LD_K8 + (nh + ni) * 8 + n];
-            });
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int f = mt * 16 + gq + 8 * h, j = (nh + ni) * 8 + 2 * tq;
-            *reinterpret_cast<float2*>(DP + dp_at(f, j)) =
-                make_float2(ch[0][ni][2 * h], ch[0][ni][2 * h + 1]);
-          }
+        XFrag a;
+        x_frag(a, XT, mt * 16);
+        pre_mma<4>(pre, a, W1d, b1 + f0, nh * 8);
       }
-      if (!pre_first) pre_tile(W1s, Xs, b1 + f0, fl, bl, pre);
-      __syncthreads();
-      // 2. dpre and the dropped hidden, the forward's gate and mask
-      float db1p[4];
+      // 2. dpre and the dropped hidden, the forward's gate and mask; db1
+      // over the warp's 16 columns, e's halves in order, then lanes
+      float db1p[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int f = fl + i;
-        const float4 dh4 = *reinterpret_cast<const float4*>(DP + dp_at(f, bl));
-        const float dh[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
-        float dp[4], hd[4];
+      for (int ni = 0; ni < 4; ++ni) {
+        db1p[ni][0] = db1p[ni][1] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int e = 0; e < 4; ++e) {
+          const int f = (nh + ni) * 8 + 2 * tq + (e & 1);
+          const int j = mt * 16 + gq + 8 * (e >> 1);
           const bool keep =
-              m.use ? keep_bit(m, base[j], f0 + f, lay.fstride) : true;
-          float h = fmaxf(pre[i][j], 0.f);
+              m.use ? keep_bit(m, base[e >> 1], f0 + f, lay.fstride) : true;
+          float h = fmaxf(pre[ni][e], 0.f);
           if (m.use) h = keep ? h * m.scale : 0.f;
-          dp[j] = dpre_of(m, pre[i][j], dh[j], keep);
-          hd[j] = h;
-          if (col[j] < 0) dp[j] = hd[j] = 0.f;
+          float dp = dpre_of(m, pre[ni][e], dh[0][ni][e], keep);
+          if (col[e >> 1] < 0) dp = h = 0.f;
+          DP[dp_at(f, j)] = dp;
+          HD[f * LD_HD + j] = h;
+          db1p[ni][e & 1] += dp;
         }
-        *reinterpret_cast<float4*>(DP + dp_at(f, bl)) =
-            make_float4(dp[0], dp[1], dp[2], dp[3]);
-        *reinterpret_cast<float4*>(HD + f * LD_HD + bl) =
-            make_float4(hd[0], hd[1], hd[2], hd[3]);
-        db1p[i] = ((dp[0] + dp[1]) + dp[2]) + dp[3];
       }
-      // db1 over the tile: the 16 threads of a hidden row, a fixed tree
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          db1p[i] += __shfl_xor_sync(0xffffffffu, db1p[i], off);
-      if ((tid & 15) == 0)
+        for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) csum[2 * FC * D + fl + i] += db1p[i];
+          for (int off = 4; off < 32; off <<= 1)
+            db1p[ni][h] += __shfl_xor_sync(0xffffffffu, db1p[ni][h], off);
+          if (gq == 0) DB1[mt * FC + (nh + ni) * 8 + 2 * tq + h] = db1p[ni][h];
+        }
       __syncthreads();
+      if (tid < FC)  // db1 of the tile: the four m-tiles in order
+        csum[2 * FC * D + tid] +=
+            ((DB1[tid] + DB1[FC + tid]) + DB1[2 * FC + tid]) +
+            DB1[3 * FC + tid];
       // 3. dx += W1ᵀ·dpre (every warp), then dW1 = dpre·xᵀ (warps 0-3) or
       // dW2ᵀ = hd·gᵀ (warps 4-7) over the tile, 2 × 3 tiles a warp
       mma3<1, 3, FC / 8>(
@@ -624,23 +746,6 @@ __global__ void ff_bwd_reduce_kernel(const float* __restrict__ dx_parts,
   }
 }
 
-// The forward's split sum: y[i] = (sum over s = 0..S-1, in order, of
-// parts[s][i]) + b2[i % D], for the n = cols·D entries of a rows-layout
-// tensor.
-template <class L>
-__global__ void ff_fwd_sum_kernel(const float* __restrict__ parts, int S,
-                                  long long n, const float* __restrict__ b2,
-                                  float* __restrict__ y) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += parts[s * n + i];
-  y[i] = acc + __ldg(b2 + i % D);
-}
-
-constexpr size_t FWD_SMEM = (D * BN + FC * D + D * FC + FC * BN) * 4;
-
 inline Mask make_mask(unsigned seedmix, unsigned thresh, float scale,
                       int use) {
   Mask m;
@@ -653,26 +758,38 @@ inline Mask make_mask(unsigned seedmix, unsigned thresh, float scale,
 
 inline int bad_width(int F) { return F < FC || F % FC != 0; }
 
-// Host side: y = FF(x), launched on `st`.  With splits > 1 the partials go
-// to `parts` (splits · cols · D floats) and ff_fwd_sum_kernel adds them;
-// that sum indexes features as i % D, so splits > 1 needs a layout whose
-// offset(k, c) is c·D + k.
+// cp.async and fetch_weights read W1 and W2 16 bytes at a time.
+inline bool misaligned(const float* w1, const float* w2) {
+  return ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) &
+          15) != 0;
+}
+
+// Host side: y = FF(x), one launch on `st` (fwd_cluster blocks a tile).
 template <class L>
 cudaError_t forward(const L& lay, const float* x, const float* w1,
                     const float* b1, const float* w2, const float* b2,
-                    float* y, float* parts, int splits, int F, Mask m,
-                    cudaStream_t st) {
+                    float* y, int F, Mask m, cudaStream_t st) {
+  if (misaligned(w1, w2)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ff_fwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(FWD_SMEM));
   if (err != cudaSuccess) return err;
-  ff_fwd_kernel<L><<<dim3(lay.tiles(), splits), NT, FWD_SMEM, st>>>(
-      lay, x, w1, b1, w2, b2, splits == 1 ? y : parts, F, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n = static_cast<long long>(lay.cols()) * D;
-  ff_fwd_sum_kernel<L><<<static_cast<unsigned>((n + NT - 1) / NT), NT, 0,
-                         st>>>(parts, splits, n, b2, y);
+  const int cs = fwd_cluster(lay.tiles(), F);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(lay.tiles() * cs));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = FWD_SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ff_fwd_kernel<L>, lay, x, w1, b1, w2, b2, y,
+                           F, m);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -700,10 +817,7 @@ cudaError_t backward(const L& lay, const float* x, const float* w1,
                      const float* b1, const float* w2, const float* g,
                      float* dx, float* dw1, float* db1, float* dw2,
                      float* db2, float* ws, int F, Mask m, cudaStream_t st) {
-  // fetch_weights reads W1 and W2 as float4
-  if ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) &
-      15)
-    return cudaErrorInvalidValue;
+  if (misaligned(w1, w2)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ff_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(BWD_SMEM));

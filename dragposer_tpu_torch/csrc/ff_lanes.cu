@@ -10,8 +10,7 @@
 // db2.
 //
 // The kernels are ff_common.cuh's, on the layout below: a column is
-// (token s, lane b), a tile 64 lanes of one token, the forward launched
-// unsplit.  What
+// (token s, lane b), a tile 64 lanes of one token.  What
 // bounds them and what their design does about it is written there; at
 // S = 15, B = 512, F = 2048 the forward is 3.02 GFLOP and the (S·B, 2048)
 // hidden, never stored, would be 63 MB.  The dropout mask is the JAX
@@ -76,7 +75,7 @@ bool bad_shape(int S, int B, int F) {
 }  // namespace
 
 // x, y (S, 48, B); w1 (F, 48); b1 (F); w2 (48, F); b2 (48); float32,
-// contiguous.  F a multiple of 64.  Launches on `stream`; returns
+// contiguous, w1 and w2 16-byte aligned.  F a multiple of 64.  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int ff_lanes_forward(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* y,
@@ -88,7 +87,7 @@ extern "C" int ff_lanes_forward(const void* x, const void* w1, const void* b1,
       make_layout(S, B), static_cast<const float*>(x),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(y), nullptr, 1, F,
+      static_cast<float*>(y), F,
       ff::make_mask(seedmix, thresh, scale, use_mask),
       static_cast<cudaStream_t>(stream)));
 }

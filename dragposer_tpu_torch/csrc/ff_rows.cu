@@ -10,13 +10,15 @@
 // the hidden and returns dx, dW1, db1, dW2, db2.
 //
 // The kernels are ff_common.cuh's, on the layout below: a column is a row
-// of x, a tile 64 consecutive rows.  What bounds them is arithmetic: at
-// M = 15·512 = 7,680 the forward is 3.02 GFLOP (0.045 ms at the float32
-// CUDA-core peak), the backward 2.5× that, and the (M, 2048) hidden, never
-// stored, would be 63 MB.  At that M there are only 120 row tiles for 132
-// SMs, so the forward splits the 32 hidden chunks over gridDim.y
-// (ff_rows_splits) and adds the partials in a fixed order; the backward's
-// grid is column groups × hidden groups (ff_common.cuh).  The
+// of x, a tile 64 consecutive rows.  What bounds them is tensor-core
+// arithmetic: at M = 15·512 = 7,680 the forward is 3.02 GFLOP, 0.0183 ms
+// at three TF32 passes (0.045 ms at the float32 CUDA-core peak), the
+// backward 2.5× that, and the (M, 2048) hidden, never stored, would be
+// 63 MB.  At that M there are only 120 row tiles for 132 SMs, so the
+// forward splits the 32 hidden chunks over a cluster of blocks a tile
+// (ff::fwd_cluster) and adds the partials in rank order within its one
+// launch; the backward's grid is column groups × hidden groups
+// (ff_common.cuh).  The
 // dropout mask is the TPU kernel's, from the row's global index m: row
 // m % 256 of TILE_M = 256-row tile m // 256, position (m % 256)·F + f.  So
 // it matches JAX bit for bit whatever this kernel's tiling, and a ragged
@@ -70,33 +72,17 @@ bool bad_shape(int M, int F) { return M < 1 || ff::bad_width(F); }
 
 }  // namespace
 
-// Hidden splits of the forward over M rows: about two blocks per SM, at
-// most 8.
-extern "C" int ff_rows_splits(int M, int F) {
-  const int tiles = (M + BN - 1) / BN;
-  int s = (2 * ff::SMS + tiles - 1) / tiles;
-  if (s > 8) s = 8;
-  if (s > F / FC) s = F / FC;
-  return s < 1 ? 1 : s;
-}
-
-// Floats of the forward's workspace: the split partials of y, if it splits.
-extern "C" long long ff_rows_forward_workspace_floats(int M, int F) {
-  const int s = ff_rows_splits(M, F);
-  return s > 1 ? static_cast<long long>(s) * M * D : 0LL;
-}
-
 // Floats of the backward's workspace.
 extern "C" long long ff_rows_backward_workspace_floats(int M, int F) {
   return ff::bwd_workspace_floats(M, (M + BN - 1) / BN, F);
 }
 
-// x, y (M, 48); w1 (F, 48); b1 (F); w2 (48, F); b2 (48); ws of
-// ff_rows_forward_workspace_floats(M, F) floats; float32, contiguous.  F a
-// multiple of 64.  Launches on `stream`; returns cudaGetLastError().
+// x, y (M, 48); w1 (F, 48); b1 (F); w2 (48, F); b2 (48); float32,
+// contiguous, w1 and w2 16-byte aligned.  F a multiple of 64.  Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int ff_rows_forward(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y,
-                               void* ws, int M, int F, unsigned seedmix,
+                               int M, int F, unsigned seedmix,
                                unsigned thresh, float scale, int use_mask,
                                void* stream) {
   if (bad_shape(M, F)) return static_cast<int>(cudaErrorInvalidValue);
@@ -104,8 +90,8 @@ extern "C" int ff_rows_forward(const void* x, const void* w1, const void* b1,
       make_layout(M, F), static_cast<const float*>(x),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(y), static_cast<float*>(ws), ff_rows_splits(M, F),
-      F, ff::make_mask(seedmix, thresh, scale, use_mask),
+      static_cast<float*>(y), F,
+      ff::make_mask(seedmix, thresh, scale, use_mask),
       static_cast<cudaStream_t>(stream)));
 }
 

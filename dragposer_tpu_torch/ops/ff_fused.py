@@ -17,10 +17,10 @@ are the TPU kernels' bit for bit:
 :func:`ff_dropout_lanes` and :func:`ff_dropout_seeded` (rows) go through
 ``torch.autograd.Function`` classes: on CUDA tensors the forward launches K3c
 or K3a and the backward K3d or K3b (``csrc/ff_lanes.cu``,
-``csrc/ff_rows.cu``; the backward forms its four gradient products on the
-tensor cores as 3xTF32, whose plain form is ``backward_plain(mm=
-temporal_fused.matmul_3xtf32)``); on CPU tensors both directions run the
-plain twins
+``csrc/ff_rows.cu``; both form every product, the pre-activation
+included, on the tensor cores as 3xTF32, whose plain form is the twins with
+``mm=temporal_fused.matmul_3xtf32``); on CPU tensors both directions run
+the plain twins
 (:func:`forward_plain` / :func:`backward_plain`, :func:`forward_plain_rows`
 / :func:`backward_plain_rows`).  ``COUNTS_FWD`` / ``COUNTS_BWD`` (lanes) and
 ``COUNTS_FWD_ROWS`` / ``COUNTS_BWD_ROWS`` count both.  The port has no
@@ -74,8 +74,8 @@ def keep_mask_lanes(s: int, f: int, b: int, rate: float, seed: int,
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
 
-def _hidden(x, w1, b1, rate, seed):
-    pre = torch.einsum("fd,sdb->sfb", w1, x) + b1[None, :, None]
+def _hidden(x, w1, b1, rate, seed, mm):
+    pre = mm(w1, x) + b1[None, :, None]
     h = torch.relu(pre)
     keep = None
     if rate > 0.0:
@@ -86,11 +86,13 @@ def _hidden(x, w1, b1, rate, seed):
     return pre, h, keep
 
 
-def forward_plain(x, w1, b1, w2, b2, rate: float, seed: int):
-    """K3c's plain twin."""
+def forward_plain(x, w1, b1, w2, b2, rate: float, seed: int,
+                  mm=torch.matmul):
+    """K3c's plain twin; ``mm(a, b)`` forms both products (W1·x and
+    W2·h)."""
     COUNTS_FWD.plain += 1
-    _, h, _ = _hidden(x, w1, b1, rate, seed)
-    return torch.einsum("df,sfb->sdb", w2, h) + b2[None, :, None]
+    _, h, _ = _hidden(x, w1, b1, rate, seed, mm)
+    return mm(w2, h) + b2[None, :, None]
 
 
 def _columns(t):
@@ -101,10 +103,10 @@ def _columns(t):
 def backward_plain(x, w1, b1, w2, g, rate: float, seed: int,
                    mm=torch.matmul):
     """K3d's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed.
-    ``mm(a, b)`` forms the four gradient products (W2ᵀg, W1ᵀdpre, dW1,
-    dW2); the pre-activation stays float32."""
+    ``mm(a, b)`` forms the recomputed pre-activation W1·x, as the forward
+    does, and the four gradient products (W2ᵀg, W1ᵀdpre, dW1, dW2)."""
     COUNTS_BWD.plain += 1
-    pre, hd, keep = _hidden(x, w1, b1, rate, seed)
+    pre, hd, keep = _hidden(x, w1, b1, rate, seed, mm)
     dh = mm(w2.T, g)
     if keep is not None:
         dh = torch.where(keep, dh * hash_dropout.keep_scale(rate),
@@ -237,8 +239,8 @@ def keep_mask_rows(m: int, f: int, rate: float, seed: int, device="cpu"):
     return hash_dropout.fmix32(h) >= hash_dropout.threshold(rate)
 
 
-def _hidden_rows(x, w1, b1, rate, seed):
-    pre = x @ w1.T + b1
+def _hidden_rows(x, w1, b1, rate, seed, mm):
+    pre = mm(x, w1.T) + b1
     h = torch.relu(pre)
     keep = None
     if rate > 0.0:
@@ -248,11 +250,12 @@ def _hidden_rows(x, w1, b1, rate, seed):
     return pre, h, keep
 
 
-def forward_plain_rows(x, w1, b1, w2, b2, rate: float, seed: int):
-    """K3a's plain twin."""
+def forward_plain_rows(x, w1, b1, w2, b2, rate: float, seed: int,
+                       mm=torch.matmul):
+    """K3a's plain twin; ``mm`` as in :func:`forward_plain`."""
     COUNTS_FWD_ROWS.plain += 1
-    _, h, _ = _hidden_rows(x, w1, b1, rate, seed)
-    return h @ w2.T + b2
+    _, h, _ = _hidden_rows(x, w1, b1, rate, seed, mm)
+    return mm(h, w2.T) + b2
 
 
 def backward_plain_rows(x, w1, b1, w2, g, rate: float, seed: int,
@@ -260,7 +263,7 @@ def backward_plain_rows(x, w1, b1, w2, g, rate: float, seed: int,
     """K3b's plain twin: (dx, dW1, db1, dW2, db2), the hidden recomputed;
     ``mm`` as in :func:`backward_plain`."""
     COUNTS_BWD_ROWS.plain += 1
-    pre, hd, keep = _hidden_rows(x, w1, b1, rate, seed)
+    pre, hd, keep = _hidden_rows(x, w1, b1, rate, seed, mm)
     dh = mm(g, w2)
     if keep is not None:
         dh = torch.where(keep, dh * hash_dropout.keep_scale(rate),
@@ -273,12 +276,10 @@ def backward_plain_rows(x, w1, b1, w2, g, rate: float, seed: int,
 def _declare_rows(lib):
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
-    lib.ff_rows_forward.argtypes = [p] * 7 + [i, i, u, u, f, i, p]
+    lib.ff_rows_forward.argtypes = [p] * 6 + [i, i, u, u, f, i, p]
     lib.ff_rows_forward.restype = i
     lib.ff_rows_backward.argtypes = [p] * 11 + [i, i, u, u, f, i, p]
     lib.ff_rows_backward.restype = i
-    lib.ff_rows_forward_workspace_floats.argtypes = [i, i]
-    lib.ff_rows_forward_workspace_floats.restype = ctypes.c_longlong
     lib.ff_rows_backward_workspace_floats.argtypes = [i, i]
     lib.ff_rows_backward_workspace_floats.restype = ctypes.c_longlong
 
@@ -290,13 +291,10 @@ def _library_rows():
 def forward_kernel_rows(x, w1, b1, w2, b2, rate: float, seed: int):
     """Launch K3a on the current stream (inputs checked by the caller)."""
     m, f = x.shape[0], w1.shape[0]
-    lib = _library_rows()
-    ws = torch.empty(lib.ff_rows_forward_workspace_floats(m, f),
-                     dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    err = lib.ff_rows_forward(
+    err = _library_rows().ff_rows_forward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), y.data_ptr(), ws.data_ptr(), m, f,
+        b2.data_ptr(), y.data_ptr(), m, f,
         *_mask_args(rate, seed), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_rows_forward")
     COUNTS_FWD_ROWS.kernel += 1

@@ -9,9 +9,9 @@ at import.  On a GPU machine run them with::
 They repeat, at small sizes, what ``chip_smoke.py`` checks at the main
 paths' sizes, with its tolerances (``chip_smoke.K1_TOL`` ... ``K4_TOL``):
 K1 (carry and aux, its TF32 control, lanes that take no step, no plain
-code), K2, K3a/K3b (rows) and K3c/K3d (lanes) with the backward's TF32
-control, its ReLU gates against the forward's and its tensor-core
-instructions, K4a/K4b, and one training step of each layout on the card
+code), K2, K3a/K3b (rows) and K3c/K3d (lanes) with the forward's and the
+backward's TF32 controls, the backward's ReLU gates against the forward's
+and both kernels' tensor-core instructions, K4a/K4b, and one training step of each layout on the card
 against the CPU.
 """
 
@@ -181,7 +181,7 @@ def test_k3_kernels_match_plain(engines, s, b, rate):
 
 
 # M = s·b rows: 390 and 600 span ragged 256-row TPU tiles and 64-row CUDA
-# tiles; 17 is one partial tile; 7,680 splits the hidden over gridDim.y
+# tiles; 17 is one partial tile; 7,680 splits the hidden over a cluster
 @pytest.mark.parametrize("s,b,rate", [(3, 130, 0.1), (2, 300, 0.1),
                                       (2, 300, 0.0), (1, 17, 0.1),
                                       (15, 512, 0.1)])
@@ -199,7 +199,10 @@ def test_k3_backward_gate_is_the_forwards(engines, layout, rate):
 
 @pytest.mark.parametrize("name", ["ff_rows", "ff_lanes"])
 def test_k3_backward_runs_on_the_tensor_cores(engines, name):
-    assert chip_smoke.sass_mma_count(name) > 0
+    """Both FF kernels of each library, the forward and the backward, hold
+    tensor-core instructions."""
+    assert chip_smoke.sass_mma_count(name, "ff_bwd_kernel") > 0
+    assert chip_smoke.sass_mma_count(name, "ff_fwd_kernel") > 0
 
 
 @pytest.mark.parametrize("sq,sk,b,causal", [(14, 14, 37, False),

@@ -1,15 +1,17 @@
-"""The FF backward's gradient products in 3xTF32 (the arithmetic of K3b's
-and K3d's tensor-core products), on the CPU.
+"""The FF kernels' products in 3xTF32 (the arithmetic of K3a-K3d on the
+tensor cores), on the CPU.
 
-``backward_plain{,_rows}(mm=matmul_3xtf32)`` forms W2ᵀg, W1ᵀdpre, dW1 and
-dW2 from TF32 splits (hi·hi + hi·lo + lo·hi in float32); the
-pre-activation and so the ReLU gate stay float32.  That twin must hold
-K3's card tolerance (``chip_smoke.K3_TOL``: rtol 1e-4, atol 2e-6·max|ref|)
-against the float32 twin and the JAX-parity tolerance of
-``test_torch_ff_fused.py`` (lanes) and ``test_torch_ff_rows.py`` (rows)
-against JAX in interpret mode with ``bf16=False``; the same products in
-one TF32 pass (``matmul_tf32``) must fail K3_TOL, so the tolerance tells
-3xTF32 from TF32.  Shapes are the parity tests'; rates 0.1 and 0.
+``forward_plain{,_rows}(mm=matmul_3xtf32)`` forms W1·x (the
+pre-activation) and W2·h from TF32 splits (hi·hi + hi·lo + lo·hi in
+float32), as K3a/K3c do; ``backward_plain{,_rows}(mm=matmul_3xtf32)``
+forms the recomputed pre-activation the same way, and W2ᵀg, W1ᵀdpre, dW1
+and dW2, as K3b/K3d do.  Each twin must hold K3's card tolerance
+(``chip_smoke.K3_TOL``: rtol 1e-4, atol 2e-6·max|ref|) against the float32
+twin and the JAX-parity tolerance of ``test_torch_ff_fused.py`` (lanes) and
+``test_torch_ff_rows.py`` (rows) against JAX in interpret mode with
+``bf16=False``; the same products in one TF32 pass (``matmul_tf32``) must
+fail K3_TOL, so the tolerance tells 3xTF32 from TF32.  Shapes are the
+parity tests'; rates 0.1 and 0.
 """
 
 import jax
@@ -44,13 +46,20 @@ def _inputs(shape, f, seed):
         g=rng.normal(size=shape).astype(np.float32))
 
 
+def _twin_fwd(layout, a, rate, mm=torch.matmul):
+    fwd = tff.forward_plain if layout == "lanes" else tff.forward_plain_rows
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    return fwd(t["x"], t["w1"], t["b1"], t["w2"], t["b2"], rate, SEED,
+               mm=mm)
+
+
 def _twin(layout, a, rate, mm=torch.matmul):
     bwd = tff.backward_plain if layout == "lanes" else tff.backward_plain_rows
     t = {k: torch.as_tensor(v) for k, v in a.items()}
     return bwd(t["x"], t["w1"], t["b1"], t["w2"], t["g"], rate, SEED, mm=mm)
 
 
-def _jax_grads(layout, a, rate):
+def _jax_fn(layout, rate):
     if layout == "lanes":
         def fn(x, w1, b1, w2, b2):
             return jff.ff_dropout_lanes(x, {"w": w1, "b": b1},
@@ -60,13 +69,48 @@ def _jax_grads(layout, a, rate):
         def fn(x, w1, b1, w2, b2):
             return jff._ff_dropout(rate, False, x, w1.T, b1, w2.T, b2,
                                    jnp.array([SEED], jnp.int32))
-    _, vjp = jax.vjp(fn, *[a[n] for n in ("x", "w1", "b1", "w2", "b2")])
+    return fn
+
+
+def _jax_y(layout, a, rate):
+    return np.asarray(_jax_fn(layout, rate)(
+        *[a[n] for n in ("x", "w1", "b1", "w2", "b2")]))
+
+
+def _jax_grads(layout, a, rate):
+    _, vjp = jax.vjp(_jax_fn(layout, rate),
+                     *[a[n] for n in ("x", "w1", "b1", "w2", "b2")])
     return [np.asarray(r) for r in vjp(a["g"])]
 
 
 def _case_id(case):
     layout, shape, f = case
     return f"{layout}-{'x'.join(map(str, shape))}-F{f}"
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_forward_3xtf32_twin_holds_k3_tol_and_jax_parity(case, rate):
+    layout, shape, f = case
+    a = _inputs(shape, f, sum(shape) + f)
+    got = _twin_fwd(layout, a, rate, mm=matmul_3xtf32)
+    errs, ok = chip_smoke.k3_within_tol((got,), (_twin_fwd(layout, a, rate),))
+    assert ok, errs
+    # the parity tests' forward tolerances
+    rtol = 1e-4 if layout == "lanes" else 1e-5
+    np.testing.assert_allclose(got.numpy(), _jax_y(layout, a, rate),
+                               rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_forward_k3_tol_refuses_one_tf32_pass(case, rate):
+    layout, shape, f = case
+    a = _inputs(shape, f, sum(shape) + f)
+    errs, ok = chip_smoke.k3_within_tol(
+        (_twin_fwd(layout, a, rate, mm=matmul_tf32),),
+        (_twin_fwd(layout, a, rate),))
+    assert not ok, errs
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.0])
@@ -101,8 +145,9 @@ def test_k3_tol_refuses_one_tf32_pass(case, rate):
 
 @pytest.mark.parametrize("layout", ["lanes", "rows"])
 def test_mm_reaches_only_the_gradient_products(layout):
-    """With an exact ``mm`` the twin is the float32 twin: ``mm`` forms the
-    four gradient products and nothing else (the gate stays float32)."""
+    """With an exact ``mm`` the backward twin is the float32 twin: ``mm``
+    forms the recomputed pre-activation (as the forward does) and the four
+    gradient products, and nothing else."""
     a = _inputs((2, D, 70) if layout == "lanes" else (140, D), 128, 5)
     calls = []
 
@@ -112,6 +157,29 @@ def test_mm_reaches_only_the_gradient_products(layout):
 
     got = _twin(layout, a, 0.1, mm=mm)
     ref = _twin(layout, a, 0.1)
-    assert len(calls) == 4
+    assert len(calls) == 5
+    # the first is the pre-activation, W1·x
+    assert calls[0] == (((128, D), (2, D, 70)) if layout == "lanes" else
+                        ((140, D), (D, 128)))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["lanes", "rows"])
+def test_forward_mm_forms_both_products(layout):
+    """``mm`` forms the forward's two products, W1·x then W2·h, and
+    nothing else: with an exact ``mm`` the twin is the float32 twin."""
+    a = _inputs((2, D, 70) if layout == "lanes" else (140, D), 128, 5)
+    calls = []
+
+    def mm(x, y):
+        calls.append((tuple(x.shape), tuple(y.shape)))
+        return x @ y
+
+    got = _twin_fwd(layout, a, 0.1, mm=mm)
+    torch.testing.assert_close(got, _twin_fwd(layout, a, 0.1), rtol=0,
+                               atol=0)
+    if layout == "lanes":
+        assert calls == [((128, D), (2, D, 70)), ((D, 128), (2, 128, 70))]
+    else:
+        assert calls == [((140, D), (D, 128)), ((140, 128), (128, D))]

@@ -41,7 +41,8 @@ LENGTHS = np.array([16, 13, 16, 5, 15, 16], np.int32)
 WINDOWED_LENGTHS = np.array([8, 6, 8, 3] * 6, np.int32)
 
 
-def _build_setup(tmp_path_factory, config, lengths, stagger):
+def _build_setup(tmp_path_factory, config, lengths, stagger,
+                 use_temporal=True):
     import jax
     import jax.numpy as jnp
 
@@ -64,10 +65,11 @@ def _build_setup(tmp_path_factory, config, lengths, stagger):
     tsk = TS.build(parents, offsets, bvh.names)
     je, means, stds = jev.build_engine(MODEL_DIR, parents,
                                        jev.resolve_config(config),
-                                       use_temporal=True, skeleton=jsk)
+                                       use_temporal=use_temporal,
+                                       skeleton=jsk)
     te, _, _ = tev.build_engine(MODEL_DIR, parents,
                                 tev.resolve_config(config),
-                                use_temporal=True, skeleton=tsk,
+                                use_temporal=use_temporal, skeleton=tsk,
                                 device="cpu")
     m = jenc.encode_motion(offsets, pos[:, 0], rots, jsk,
                            height_indices=jc.HEIGHT_INDICES)
@@ -168,6 +170,29 @@ def test_windowed_pipeline_lockstep_matches_jax(windowed_setup,
     jo, to = _run_both(windowed_setup, **KNIFE_FREE)
     assert 0 < min(rollout_batches) < len(lengths)
     _assert_lockstep(jo, to, lengths)
+
+
+# The other configs in knife-edge-free lockstep: 5 and 3 trackers (3 as
+# ``build_engine`` builds it, one start) on the windowed case's 24
+# staggered lanes of 8 frames, and 6 trackers without the temporal model
+# (``--no-temporal``; K1 then gets lambda_t = 0) in both engines.
+@pytest.mark.parametrize("config,lengths,stagger,use_temporal", [
+    ("5_trackers", WINDOWED_LENGTHS, True, True),
+    ("3_trackers", WINDOWED_LENGTHS, True, True),
+    ("6_trackers", LENGTHS, False, False)],
+    ids=["5_trackers", "3_trackers", "6_trackers-no_temporal"])
+def test_config_pipeline_lockstep_matches_jax(tmp_path_factory, config,
+                                              lengths, stagger,
+                                              use_temporal):
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    setup = _build_setup(tmp_path_factory, config, lengths, stagger,
+                         use_temporal)
+    assert setup[1].hyper.use_temporal == use_temporal
+    rollouts = temporal_fused.COUNTS.plain
+    jo, to = _run_both(setup, **KNIFE_FREE)
+    _assert_lockstep(jo, to, lengths)
+    assert (temporal_fused.COUNTS.plain > rollouts) == use_temporal
 
 
 def test_pipeline_stop_rule_statistics_match_jax(slice_setup):
