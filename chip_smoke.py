@@ -32,7 +32,9 @@ printing its own line (any failure exits nonzero):
    in that window (device ms per launch); a small run held against the
    same path on the CPU (plain twins) in lockstep at one Adam step a frame
    and, at five, K2 held to its float32 twin's distance, which K2 in one
-   TF32 pass must exceed;
+   TF32 pass must exceed; the 4-tracker (windowed) path held the same way
+   at one step a frame on 24 lanes with staggered window phases, which
+   must roll K2 out on sub-batches;
 6. K3c/K3d (lanes feed-forward with hash dropout, both 3xTF32 on the
    tensor cores) against their plain twins at S = 15, B = 512 and 4096
    (rates 0.1 and 0), timed by their own device time, the kernel's own
@@ -41,8 +43,10 @@ printing its own line (any failure exits nonzero):
    in one TF32 pass); the gate probe: K3d's ReLU gates on knife-edge
    pre-activations equal to K3c's bit for bit;
 7. K4a/K4b (lanes attention core) against their plain twins at the
-   training path's shapes, ``scaled_dot_product_attention`` timed beside
-   them as a yardstick only;
+   training path's shapes and at a scattered non-causal mask, a fully
+   masked query row (NaN where the twin has NaN), one query, one lane and
+   a ragged lane count, ``scaled_dot_product_attention`` timed beside
+   them as a yardstick only, and their timed builds' SM cycles by phase;
 8. the temporal trainer in the lanes layout: ``train.temporal.train`` at
    the recipe's width and batch (B = 512) on a seeded synthetic corpus, a
    few epochs at dropout 0.1 (K3c/K3d only: attention with dropout takes
@@ -875,19 +879,60 @@ def k3_gate_probe(layout: str, rate: float, n: int = 64, seed: int = 77,
             "ok": mismatch == 0}
 
 
-def k4_flops(sq: int, sk: int, B: int, h: int = 4, dh: int = 12) -> tuple:
-    """(forward, backward) operations: QK and AV 2·Sq·Sk·dh each, ~5 per
-    score for the softmax; the backward recomputes QK and the softmax and
-    adds g·v, dq, dk and dv (2·Sq·Sk·dh each) and ~5 per score."""
-    per = sq * sk * h * B
+def k4_flops(pairs: int, B: int, h: int = 4, dh: int = 12) -> tuple:
+    """(forward, backward) operations over ``pairs`` live (query, key)
+    pairs (what the kernels compute: a key masked by -inf is skipped): QK
+    and AV 2·dh each, ~5 a score for the softmax; the backward recomputes
+    QK and the softmax and adds g·v, dq, dk and dv (2·dh each) and ~5 a
+    score."""
+    per = pairs * h * B
     return per * (4 * dh + 5), per * (10 * dh + 10)
 
 
-def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
+# the additive masks K4 is held at (k4_mask)
+K4_MASKS = ("zero", "causal", "scattered", "dead_row")
+
+
+def k4_mask(kind: str, sq: int, sk: int, seed: int = 0):
+    """An additive (Sq, Sk) float32 mask of ``kind``: ``zero``; ``causal``
+    (query i sees keys ≤ i); ``scattered``: seeded finite values with ~40%
+    of the entries -inf, not causal, every row keeping a live key;
+    ``dead_row``: causal with query row min(3, Sq - 1) all -inf, whose
+    softmax is 0/0, NaN, in the plain twin and the JAX kernel."""
+    import torch
+
+    if kind not in K4_MASKS:
+        raise ValueError(f"mask kind {kind!r} not in {K4_MASKS}")
+    m = np.zeros((sq, sk), np.float32)
+    if kind in ("causal", "dead_row"):
+        m = np.where(np.tri(sq, sk, dtype=bool), 0.0, -np.inf)
+    if kind == "dead_row":
+        m[min(3, sq - 1)] = -np.inf
+    if kind == "scattered":
+        rng = np.random.default_rng(seed)
+        m = rng.normal(scale=0.5, size=(sq, sk))
+        m[rng.random((sq, sk)) < 0.4] = -np.inf
+        m[np.arange(sq), np.arange(sq) * 7 % sk] = 0.25
+    return torch.as_tensor(m.astype(np.float32))
+
+
+def k4_live_pairs(mask) -> int:
+    """(query, key) pairs the kernels compute: the keys not masked by -inf,
+    every key of a row that has none."""
+    import torch
+
+    live = (mask != float("-inf")).sum(dim=1)
+    return int(torch.where(live == 0, mask.shape[1], live).sum())
+
+
+def check_k4(sq: int, sk: int, B: int, mask: str = "zero", reps: int = 5,
              timed: bool = True, library: bool = False,
              device="cuda") -> dict:
-    """K4a and K4b against their plain twins on the card (and, with
-    ``library``, scaled_dot_product_attention timed as a yardstick)."""
+    """K4a and K4b against their plain twins on the card, with an additive
+    mask of kind ``mask`` (:func:`k4_mask`), at ``K4_TOL``: every output
+    finite, except with ``dead_row``, whose NaN positions must equal the
+    twin's and whose finite entries hold the tolerance.  With ``library``,
+    scaled_dot_product_attention timed as a yardstick."""
     import torch
 
     from dragposer_tpu_torch.ops import attn_fused
@@ -896,11 +941,7 @@ def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
     g = torch.Generator().manual_seed(sq * 100 + sk)
     q, k, v, gy = [torch.randn(s, generator=g).to(dev) for s in (
         (sq, 4, 12, B), (sk, 4, 12, B), (sk, 4, 12, B), (sq, 4, 12, B))]
-    mask = torch.zeros((sq, sk), device=dev)
-    if causal:
-        mask = torch.where(torch.tril(torch.ones((sq, sk), dtype=torch.bool,
-                                                 device=dev)), 0.0,
-                           float("-inf"))
+    kind, mask = mask, k4_mask(mask, sq, sk, seed=sq * 100 + sk).to(dev)
     fwd_k = lambda: attn_fused.forward_kernel(q, k, v, mask)  # noqa: E731
     fwd_p = lambda: attn_fused.forward_plain(q, k, v, mask)  # noqa: E731
     bwd_k = lambda: attn_fused.backward_kernel(q, k, v, mask, gy)  # noqa: E731
@@ -909,14 +950,24 @@ def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
     grads, grads_ref = bwd_k(), bwd_p()
     if device == "cuda":
         torch.cuda.synchronize()
-    errs, ok = {}, True
+    errs, nans, ok = {}, {}, True
     for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *grads),
                           (o_ref, *grads_ref)):
+        if kind == "dead_row":
+            nan_ref = torch.isnan(r)
+            nans[name] = {"twin": int(nan_ref.sum()),
+                          "equal": bool(torch.equal(torch.isnan(a),
+                                                    nan_ref))}
+            ok &= nans[name]["equal"]
+            a, r = a[~nan_ref], r[~nan_ref]
+        else:
+            ok &= bool(torch.isfinite(a).all())
         err = (a - r).abs()
-        errs[name] = float(err.max())
+        errs[name] = float(err.max()) if err.numel() else 0.0
         ok &= bool((err <= K4_TOL["atol"] + K4_TOL["rtol"] * r.abs()).all())
-        ok &= bool(torch.isfinite(a).all())
-    res = {"max_abs_err": errs, "ok": ok}
+    res = {"mask": kind, "max_abs_err": errs, "ok": ok}
+    if nans:
+        res["nan_positions"] = nans
     if timed:
         # a K4 launch is shorter than the host's share of its call, so
         # events around one call time the host: every time here is device
@@ -928,7 +979,10 @@ def check_k4(sq: int, sk: int, B: int, causal: bool, reps: int = 5,
             device_ms(bwd_p)
         res["fwd_event_ms"], res["bwd_event_ms"] = cuda_ms(fwd_k, reps), \
             cuda_ms(bwd_k, reps)
-        f_fwd, f_bwd = k4_flops(sq, sk, B)
+        # SM cycles a warp by phase, from the kernels' timed builds
+        res["phase_cycles"] = attn_fused.phase_cycles(q, k, v, mask, gy)
+        res["live_pairs"] = k4_live_pairs(mask)
+        f_fwd, f_bwd = k4_flops(res["live_pairs"], B)
         io = 4 * (q.numel() + k.numel() + v.numel())
         # forward: q, k, v and the mask in, o out; backward: q, k, v, the
         # mask and g in, dq, dk and dv out
@@ -1093,6 +1147,54 @@ def k2_plain(mm):
         temporal_fused.forward = forward
 
 
+def _run_pipelined(engine, args, hyper: dict):
+    """``run_batch_pipelined`` under ``hyper`` overrides; outputs on the
+    CPU."""
+    from dragposer_tpu_torch.drag import engine as eng
+
+    saved = engine.hyper
+    engine.hyper = saved._replace(**hyper)
+    try:
+        _, o = engine.run_batch_pipelined(*args, sync_k=SYNC_K)
+    finally:
+        engine.hyper = saved
+    return eng.FrameOutput(*[x.cpu() for x in o])
+
+
+def _card_and_cpu_args(gpu_engine, states, dqs, gp, gr):
+    """The same initial states and targets for the card run and the CPU
+    run."""
+    from dragposer_tpu_torch.drag import engine as eng
+
+    to_gpu = lambda x: x.to(gpu_engine.device)  # noqa: E731
+    gstates = eng.DragState(*[to_gpu(x) for x in states])
+    return ((gstates, to_gpu(dqs), to_gpu(gp), to_gpu(gr)),
+            (states, dqs, gp, gr))
+
+
+def _latent_err(a, b) -> float:
+    return float((a.latent - b.latent).abs().max())
+
+
+def one_step_lockstep(g, c) -> dict:
+    """The card's and the CPU's outputs at one Adam step a frame: equal
+    iteration counts, latents to 1e-4, root positions to 1e-5 and
+    normalized poses to rtol 1e-3 / atol 2e-3
+    (tests/test_torch_pipeline.py's tolerances)."""
+    import torch
+
+    res = {"lockstep_iters_equal": bool(torch.equal(g.iterations,
+                                                    c.iterations)),
+           "lockstep_latent_err": _latent_err(g, c)}
+    res["one_step_ok"] = (
+        res["lockstep_iters_equal"]
+        and res["lockstep_latent_err"] <= 1e-4
+        and bool(torch.allclose(g.global_pos, c.global_pos, rtol=0,
+                                atol=1e-5))
+        and bool(torch.allclose(g.pose, c.pose, rtol=1e-3, atol=2e-3)))
+    return res
+
+
 def check_against_cpu(gpu_engine, cpu_engine, bvh, means, stds, B=8, T=24):
     """The main path on the card (kernels) against the same path on the CPU
     (plain twins), from the same initial states: knife-edge-free lockstep
@@ -1113,44 +1215,21 @@ def check_against_cpu(gpu_engine, cpu_engine, bvh, means, stds, B=8, T=24):
     (tests/test_torch_lockstep_conditioning.py)."""
     import torch
 
-    from dragposer_tpu_torch.drag import engine as eng
     from dragposer_tpu_torch.ops import temporal_fused
 
-    states, dqs, gp, gr = lane_batch(cpu_engine, bvh, means, stds, B, T)
-    to_gpu = lambda x: x.to(gpu_engine.device)  # noqa: E731
-    gstates = eng.DragState(*[to_gpu(x) for x in states])
-    gargs = (gstates, to_gpu(dqs), to_gpu(gp), to_gpu(gr))
-    cargs = (states, dqs, gp, gr)
-
-    def run(e, args, hyper):
-        saved = e.hyper
-        e.hyper = saved._replace(**hyper)
-        try:
-            _, o = e.run_batch_pipelined(*args, sync_k=SYNC_K)
-        finally:
-            e.hyper = saved
-        return eng.FrameOutput(*[x.cpu() for x in o])
-
-    def latent_err(a, b):
-        return float((a.latent - b.latent).abs().max())
-
-    res = {}
+    gargs, cargs = _card_and_cpu_args(
+        gpu_engine, *lane_batch(cpu_engine, bvh, means, stds, B, T))
+    run = _run_pipelined
     lockstep = dict(KNIFE_FREE, max_iter=1)
-    g, c = run(gpu_engine, gargs, lockstep), run(cpu_engine, cargs, lockstep)
-    res["lockstep_iters_equal"] = bool(torch.equal(g.iterations, c.iterations))
-    res["lockstep_latent_err"] = latent_err(g, c)
-    one_step_ok = (
-        res["lockstep_iters_equal"]
-        and res["lockstep_latent_err"] <= 1e-4
-        and bool(torch.allclose(g.global_pos, c.global_pos, rtol=0,
-                                atol=1e-5))
-        and bool(torch.allclose(g.pose, c.pose, rtol=1e-3, atol=2e-3)))
+    res = one_step_lockstep(run(gpu_engine, gargs, lockstep),
+                            run(cpu_engine, cargs, lockstep))
+    one_step_ok = res.pop("one_step_ok")
     c5 = run(cpu_engine, cargs, KNIFE_FREE)
-    five = {"K2": latent_err(run(gpu_engine, gargs, KNIFE_FREE), c5)}
+    five = {"K2": _latent_err(run(gpu_engine, gargs, KNIFE_FREE), c5)}
     for name, mm in (("plain", torch.matmul),
                      ("plain_tf32", temporal_fused.matmul_tf32)):
         with k2_plain(mm):
-            five[name] = latent_err(run(gpu_engine, gargs, KNIFE_FREE), c5)
+            five[name] = _latent_err(run(gpu_engine, gargs, KNIFE_FREE), c5)
     allowed = FIVE_STEPS_FACTOR * five["plain"]
     res["five_steps_latent_err"] = five
     res["five_steps_ok"] = five["K2"] <= allowed
@@ -1161,6 +1240,116 @@ def check_against_cpu(gpu_engine, cpu_engine, bvh, means, stds, B=8, T=24):
     mc = float(run(cpu_engine, cargs, {}).iterations.float().mean())
     res["stop_rule_mean_iters"] = (mg, mc)
     res["stop_rule_ok"] = abs(mg - mc) <= 0.1 * mc
+    return res
+
+
+@contextlib.contextmanager
+def k2_lanes_recorded():
+    """While inside, every ``temporal_fused.forward`` call appends its lane
+    count (the rollout's batch) to the yielded list."""
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    lanes, forward = [], temporal_fused.forward
+
+    def spy(packed, tparam, enc, *rest):
+        lanes.append(int(enc.shape[0]))
+        return forward(packed, tparam, enc, *rest)
+
+    temporal_fused.forward = spy
+    try:
+        yield lanes
+    finally:
+        temporal_fused.forward = forward
+
+
+def _windowed_setup(config: str, bvh, B: int, T: int):
+    """``config``'s engine on the card and on the CPU, and the same initial
+    states and targets for both: B lanes × T frames of the clip, lane b at
+    window phase ``b % window``."""
+    import torch
+
+    from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    skeleton = Skeleton.build(parents, offsets, bvh.names)
+    gpu_engine, means, stds = build_engine(MODEL_DIR, parents,
+                                           resolve_config(config),
+                                           skeleton=skeleton)
+    cpu_engine, _, _ = build_engine(MODEL_DIR, parents,
+                                    resolve_config(config),
+                                    skeleton=skeleton, device="cpu")
+    window = cpu_engine.hyper.temporal_future_window
+    states, dqs, gp, gr = lane_batch(cpu_engine, bvh, means, stds, B, T)
+    states = states._replace(current_index=(
+        torch.arange(B, dtype=torch.int32) % window).contiguous())
+    return (gpu_engine, cpu_engine,
+            *_card_and_cpu_args(gpu_engine, states, dqs, gp, gr))
+
+
+def windowed_lockstep_sensitivity(config: str, bvh, B: int = 24,
+                                  T: int = 24) -> dict:
+    """How far float32 rounding alone moves the lockstep of
+    :func:`check_windowed_against_cpu` (largest latent distance from the
+    CPU run): the card with the kernels, the card with K1's and K2's
+    float32 twins, and the CPU run from itself with its initial latents
+    scaled by 1 + 1e-7."""
+    import torch
+
+    gpu_engine, cpu_engine, gargs, cargs = _windowed_setup(config, bvh, B, T)
+    lockstep = dict(KNIFE_FREE, max_iter=1)
+    ref = _run_pipelined(cpu_engine, cargs, lockstep)
+    res = {"config": config,
+           "kernels": _latent_err(_run_pipelined(gpu_engine, gargs,
+                                                 lockstep), ref)}
+    with k1_plain(), k2_plain(torch.matmul):
+        res["float32_twins"] = _latent_err(
+            _run_pipelined(gpu_engine, gargs, lockstep), ref)
+    states = cargs[0]
+    moved = (states._replace(latent=states.latent * (1 + 1e-7)), *cargs[1:])
+    res["cpu_latents_scaled_1e-7"] = _latent_err(
+        _run_pipelined(cpu_engine, moved, lockstep), ref)
+    return res
+
+
+def check_windowed_against_cpu(config: str, bvh, B: int = 24, T: int = 24
+                               ) -> dict:
+    """A windowed config (``config`` with a temporal future window: the
+    rollout runs only for the lanes at a window boundary, gathered into a
+    sub-batch by ``engine._rollout_where_needed``) on the card against the
+    same path on the CPU, in lockstep at one Adam step a frame, lane b
+    starting at window phase ``b % window`` (as
+    tests/test_torch_pipeline.py staggers them), held by the one-step gate
+    of :func:`check_against_cpu`.  Every K2 launch of the card run is
+    recorded with its lane count: the run must launch K2, run none of its
+    plain twin, and roll out at least one sub-batch of at most
+    ``engine.rollout_lane_budget(B, window)`` lanes."""
+    import collections
+
+    from dragposer_tpu_torch.drag import engine as eng
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    gpu_engine, cpu_engine, gargs, cargs = _windowed_setup(config, bvh, B, T)
+    window = cpu_engine.hyper.temporal_future_window
+    lockstep = dict(KNIFE_FREE, max_iter=1)
+    before = (temporal_fused.COUNTS.kernel, temporal_fused.COUNTS.plain)
+    with k2_lanes_recorded() as lanes:
+        g = _run_pipelined(gpu_engine, gargs, lockstep)
+    launches = temporal_fused.COUNTS.kernel - before[0]
+    plain = temporal_fused.COUNTS.plain - before[1]
+    res = {"config": config, "window": window, "B": B, "T": T,
+           **one_step_lockstep(g, _run_pipelined(cpu_engine, cargs,
+                                                 lockstep))}
+    budget = eng.rollout_lane_budget(B, window)
+    res.update({"k2_launches": launches, "k2_plain_on_card": plain,
+                "k2_launches_by_lanes": dict(sorted(
+                    collections.Counter(lanes).items())),
+                "lane_budget": budget,
+                "sub_batch_launches": sum(1 for n in lanes
+                                          if n <= budget and n < B)})
+    res["ok"] = (res.pop("one_step_ok") and launches == len(lanes) > 0
+                 and plain == 0 and res["sub_batch_launches"] > 0)
     return res
 
 
@@ -1385,6 +1574,53 @@ def k3_figures(calls: int = 20) -> dict:
                                    prof["device_ms"].items()},
             "device_busy_ms_per_step": prof["device_busy_ms"] / n,
             "idle_share": prof["idle_share"]}
+    res["clocks"].append(gpu_clocks())
+    return res
+
+
+def k4_figures(calls: int = 20) -> dict:
+    """K4a/K4b's numbers for a parent/change comparison, from whatever
+    ``dragposer_tpu_torch`` is first on the path: the card and its clocks;
+    each kernel's own device time per call (every kernel a call launches,
+    summed, ``torch.profiler`` over ``calls`` calls) and its kernel launches
+    per call at 15 × 15 causal, B = 512 and 4096, CUDA events beside; then
+    one epoch of the lanes trainer at dropout 0 and the device time per
+    step of 3 profiled steps by kernel (``profile_training_steps``)."""
+    import torch
+
+    from dragposer_tpu_torch.ops import attn_fused
+
+    res = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), "clocks": [gpu_clocks()]}
+    for B in (B_TRAIN, B_PROFILED):
+        g = torch.Generator().manual_seed(B)
+        q, k, v, gy = [torch.randn((15, 4, 12, B), generator=g).cuda()
+                       for _ in range(4)]
+        mask = k4_mask("causal", 15, 15).cuda()
+        for name, call in (
+                ("K4a", lambda: attn_fused.forward_kernel(q, k, v, mask)),
+                ("K4b", lambda: attn_fused.backward_kernel(q, k, v, mask,
+                                                           gy))):
+            call()
+            prof = profile_device_time(
+                lambda: [call() for _ in range(calls)], {})
+            res[f"{name}_15x{B}"] = {
+                "device_ms": prof["device_busy_ms"] / calls,
+                "launches_per_call": prof["kernel_launches"] / calls,
+                "event_ms": cuda_ms(call)}
+    res["clocks"].append(gpu_clocks())
+    data_dir = write_training_corpus()
+    run_training(data_dir, 0.0, 1)
+    prof = profile_training_steps(data_dir, 0.0, timed_steps=10, repeats=1)
+    n = prof["profiled_steps"]
+    res["train_lanes_dropout_0"] = {
+        "step_ms": prof["step_ms"],
+        "device_ms_per_step": {k: v / n for k, v in
+                               prof["device_ms"].items()},
+        "device_busy_ms_per_step": prof["device_busy_ms"] / n,
+        "idle_share": prof["idle_share"]}
     res["clocks"].append(gpu_clocks())
     return res
 
@@ -2299,6 +2535,13 @@ def main() -> int:
           + json.dumps(ref), flush=True)
     if not (ref["lockstep_ok"] and ref["stop_rule_ok"]):
         fail(f"the card's main path disagrees with the CPU's: {ref}")
+    win = check_windowed_against_cpu("4_trackers", bvh)
+    print("[5] windowed path 4_trackers on the card vs on the CPU (B=24, "
+          "T=24, staggered window phases, one Adam step a frame; K2 "
+          "launches by lane count): " + json.dumps(win), flush=True)
+    if not win["ok"]:
+        fail(f"the card's windowed path disagrees with the CPU's, or ran "
+             f"no sub-batch rollout through K2: {win}")
 
     # ---- K3 and K4 against their plain twins ----
     k3_main = k3_big = None
@@ -2318,16 +2561,24 @@ def main() -> int:
             k3_big = r
     gate_probe("[6]", "lanes")
     k4_main = k4_big = None
-    for B, sq, sk, causal in ((B_TRAIN, 14, 14, False),
-                              (B_TRAIN, 15, 14, False),
-                              (B_TRAIN, 15, 15, True),
-                              (B_PROFILED, 15, 15, True)):
-        main_shape = sq == sk == 15
+    # the trainer's three shapes (encoder, cross, causal decoder), then a
+    # scattered non-causal mask, a fully masked query row, one query, one
+    # lane and a lane count no 8-lane group divides (single floats)
+    for B, sq, sk, kind in ((B_TRAIN, 14, 14, "zero"),
+                            (B_TRAIN, 15, 14, "zero"),
+                            (B_TRAIN, 15, 15, "causal"),
+                            (B_PROFILED, 15, 15, "causal"),
+                            (B_TRAIN, 15, 15, "scattered"),
+                            (B_TRAIN, 15, 15, "dead_row"),
+                            (B_TRAIN, 1, 15, "zero"),
+                            (1, 15, 15, "causal"),
+                            (130, 15, 14, "scattered")):
+        main_shape = sq == sk == 15 and kind == "causal" and B > 1
         clocks = gpu_clocks()
-        r = check_k4(sq, sk, B, causal, timed=main_shape, library=main_shape)
+        r = check_k4(sq, sk, B, kind, timed=main_shape, library=main_shape)
         if main_shape:
             r["clocks_sm_mem"] = [clocks, gpu_clocks()]
-        print(f"[7] K4a/K4b B={B} Sq={sq} Sk={sk} causal={causal}: "
+        print(f"[7] K4a/K4b B={B} Sq={sq} Sk={sk} mask={kind}: "
               + json.dumps(r), flush=True)
         if not r["ok"]:
             fail(f"K4 disagrees with its plain twin: {r}")

@@ -68,9 +68,13 @@ def backward_plain(q, k, v, mask, g):
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.attn_lanes_forward.argtypes = [p] * 5 + [i] * 5 + [f, p]
-    lib.attn_lanes_forward.restype = i
     lib.attn_lanes_backward.argtypes = [p] * 8 + [i] * 5 + [f, p]
-    lib.attn_lanes_backward.restype = i
+    lib.attn_lanes_forward_timed.argtypes = [p] * 5 + [i] * 5 + [f, p, p]
+    lib.attn_lanes_backward_timed.argtypes = [p] * 8 + [i] * 5 + [f, p, p]
+    for entry in (lib.attn_lanes_forward, lib.attn_lanes_backward,
+                  lib.attn_lanes_forward_timed,
+                  lib.attn_lanes_backward_timed):
+        entry.restype = i
 
 
 def _library():
@@ -118,6 +122,46 @@ def backward_kernel(q, k, v, mask, g):
     _build.check(err, "attn_lanes_backward")
     COUNTS_BWD.kernel += 1
     return dq, dk, dv
+
+
+# The timed builds' clock slots a warp (csrc/attn_lanes.cu CLOCKS_FWD,
+# CLOCKS_BWD): the stage, the warp's own work, the rest (barrier waits and
+# the stores).
+FWD_PHASES = ("stage", "compute", "rest")
+BWD_PHASES = ("stage", "phase1", "phase2", "rest")
+_WARPS = 16     # a block's warps, one per token
+
+
+def phase_cycles(q, k, v, mask, g) -> dict:
+    """Where K4a's and K4b's time goes: one launch of each timed build (the
+    SM clock read at each phase boundary; CUDA tensors only, not counted),
+    as the mean and the largest cycles of each phase over the warps of the
+    tokens that exist (queries for the forward, queries or keys for the
+    backward)."""
+    _check_call(q, k, v, mask)
+    _build.check_tensor("g", g, q.shape, q.device)
+    sq, h, dh, b = q.shape
+    sk = k.shape[0]
+    blocks = -(-b // 8) * h
+    lib, stream = _library(), torch.cuda.current_stream(q.device).cuda_stream
+    o, dq, dk, dv = (torch.empty_like(t) for t in (q, q, k, v))
+    ptr = [t.data_ptr() for t in (q, k, v, mask)]
+    res = {}
+    for name, phases, tokens, run in (
+            ("forward", FWD_PHASES, sq, lambda c: lib.attn_lanes_forward_timed(
+                *ptr, o.data_ptr(), sq, sk, h, dh, b, _scale(dh), c, stream)),
+            ("backward", BWD_PHASES, max(sq, sk),
+             lambda c: lib.attn_lanes_backward_timed(
+                 *ptr, g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), sq, sk, h, dh, b, _scale(dh), c, stream))):
+        clocks = torch.zeros((blocks, _WARPS, len(phases)), dtype=torch.int64,
+                             device=q.device)
+        _build.check(run(clocks.data_ptr()), f"attn_lanes_{name}_timed")
+        c = clocks[:, :tokens].double().cpu().reshape(-1, len(phases))
+        res[name] = {ph: {"mean": float(c[:, j].mean()),
+                          "max": float(c[:, j].max())}
+                     for j, ph in enumerate(phases)}
+    return res
 
 
 class _AttnCoreLanes(torch.autograd.Function):

@@ -1,7 +1,9 @@
 """K4a/K4b's plain twins (port ``ops/attn_fused.attn_core_lanes`` on the
 CPU) against JAX ``ops/attn_fused.attn_core_lanes`` in interpret mode, for
 the shapes of ``tests/test_attn_fused.py``, with and without the causal
-mask.
+mask, and for the masks the card kernels skip keys by
+(``chip_smoke.k4_mask``): scattered -inf entries, and a fully masked query
+row, whose outputs are NaN (0/0) in both packages, at the same positions.
 
 Tolerances as the JAX file: forward rtol 1e-5 / atol 1e-5, gradients rtol
 1e-4 / atol 1e-5 (the same f32 arithmetic, sums reassociated).
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dragposer_tpu.ops import attn_fused as jaf
 from dragposer_tpu_torch.ops import attn_fused as taf
 
@@ -56,6 +59,31 @@ def test_forward_and_grads_match_jax(sq, sk, b, causal):
     for name, t, r in zip(("dq", "dk", "dv"), ts, ref_grads):
         assert np.isfinite(t.grad.numpy()).all(), name
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+# a fully masked query row (NaN there, and in every dk and dv entry of its
+# heads and lanes), and scattered -inf entries in a non-causal mask
+@pytest.mark.parametrize("sq,sk,b,kind", [(15, 15, 24, "dead_row"),
+                                          (15, 14, 20, "scattered"),
+                                          (8, 15, 16, "scattered")])
+def test_skipped_keys_match_jax(sq, sk, b, kind):
+    q, k, v, g = _qkv(sq * 100 + b, sq, sk, b)
+    mask = chip_smoke.k4_mask(kind, sq, sk, seed=sq * 100 + sk).numpy()
+    assert np.isneginf(mask).any() and np.isfinite(mask).any()
+    o, vjp = jax.vjp(lambda q, k, v: jaf.attn_core_lanes(
+        q, k, v, jnp.asarray(mask)), q, k, v)
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    ot = taf.attn_core_lanes(*ts, torch.as_tensor(mask))
+    ot.backward(torch.as_tensor(g))
+    pairs = [("o", ot.detach().numpy(), np.asarray(o), 1e-5)]
+    pairs += [(n, t.grad.numpy(), np.asarray(r), 1e-4)
+              for n, t, r in zip(("dq", "dk", "dv"), ts, vjp(g))]
+    for name, got, ref, rtol in pairs:
+        nan = np.isnan(ref)
+        assert nan.any() == (kind == "dead_row"), name
+        np.testing.assert_array_equal(np.isnan(got), nan, err_msg=name)
+        np.testing.assert_allclose(got[~nan], ref[~nan], rtol=rtol,
                                    atol=1e-5, err_msg=name)
 
 

@@ -162,6 +162,13 @@ def test_main_path_card_matches_cpu(engines):
     assert r["lockstep_ok"] and r["stop_rule_ok"], r
 
 
+def test_windowed_path_card_matches_cpu(engines):
+    """4 trackers (window 16): K2 rolls out the sub-batch of lanes at a
+    window boundary, card against CPU at one Adam step a frame."""
+    r = chip_smoke.check_windowed_against_cpu("4_trackers", engines[2])
+    assert r["ok"], r
+
+
 def test_k2_rejects_bad_input(engines):
     from dragposer_tpu_torch.ops import temporal_fused
 
@@ -205,16 +212,43 @@ def test_k3_backward_runs_on_the_tensor_cores(engines, name):
     assert chip_smoke.sass_mma_count(name, "ff_fwd_kernel") > 0
 
 
-@pytest.mark.parametrize("sq,sk,b,causal", [(14, 14, 37, False),
-                                            (15, 14, 130, False),
-                                            (15, 15, 64, True),
-                                            (1, 15, 8, False)])
-def test_k4_kernels_match_plain(engines, sq, sk, b, causal):
-    r = chip_smoke.check_k4(sq, sk, b, causal, timed=False,
-                            library=sq > 1)
+# K4 blocks take 8 lanes: B = 37 and 130 leave a ragged group and move
+# single floats, 36 a half group of 16-byte loads, 1 one lane; the masks
+# are the trainer's (none, causal), a scattered non-causal one and a fully
+# masked query row, whose outputs must be NaN where the twin's are
+@pytest.mark.parametrize("sq,sk,b,mask", [(14, 14, 37, "zero"),
+                                          (15, 14, 130, "zero"),
+                                          (15, 15, 64, "causal"),
+                                          (1, 15, 8, "zero"),
+                                          (15, 15, 64, "dead_row"),
+                                          (15, 15, 36, "scattered"),
+                                          (15, 14, 130, "scattered"),
+                                          (15, 15, 1, "causal"),
+                                          (1, 15, 37, "causal"),
+                                          (15, 15, 4096, "causal")])
+def test_k4_kernels_match_plain(engines, sq, sk, b, mask):
+    library = sq > 1 and mask != "dead_row"
+    r = chip_smoke.check_k4(sq, sk, b, mask, timed=False, library=library)
     assert r["ok"], r
-    if sq > 1:
+    if library:
         assert r["library_err"] < 1e-4, r
+
+
+def test_k4_timed_build_reports_every_phase(engines):
+    from dragposer_tpu_torch.ops import attn_fused
+
+    q, k, v, g = (torch.randn(15, 4, 12, 64, device="cuda") for _ in range(4))
+    mask = chip_smoke.k4_mask("causal", 15, 15).cuda()
+    before = (attn_fused.COUNTS_FWD.kernel, attn_fused.COUNTS_BWD.kernel)
+    r = attn_fused.phase_cycles(q, k, v, mask, g)
+    assert list(r["forward"]) == list(attn_fused.FWD_PHASES), r
+    assert list(r["backward"]) == list(attn_fused.BWD_PHASES), r
+    for phases in r.values():
+        for ph in ("stage", "compute", "phase1"):
+            if ph in phases:
+                assert 0 < phases[ph]["mean"] <= phases[ph]["max"], r
+    assert (attn_fused.COUNTS_FWD.kernel,
+            attn_fused.COUNTS_BWD.kernel) == before
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.0])
