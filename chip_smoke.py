@@ -71,8 +71,19 @@ printing its own line (any failure exits nonzero):
 14. the trained generator and rows-trained predictor through
     ``build_engine`` and ``run_batch_pipelined`` (B = 64 × 48 frames,
     K1 and K2 launched, MPJPE printed but not gated);
-15. the B = 4096 timings, a ``kernels`` JSON line; the last line is the
-    ``ok`` JSON.  SM and memory clocks are sampled beside every timed phase.
+15. the anchor path: ``DragEngine.run`` (autograd Adam, K2 rollout) on
+    the card against the CPU on 1 lane × 48 frames at 6 and 4 trackers in
+    lockstep at one Adam step a frame (K2 launched, no plain K2 call, no
+    K1); ``run_batch`` against ``run_batch_pipelined`` (K1 + K2) on 8
+    lanes × 24 frames, in lockstep and at the full stop rule by statistics
+    (``ANCHOR_ITER_REL``, ``ANCHOR_MPJPE_M``); the offline CLI through
+    ``cli.eval_drag.main`` (one file, ``--batch`` with restarts, the
+    3-tracker beam, ``--batch`` with constraints: finite MPJPE and jitter,
+    launches per run); the anchor's frames/s and device idle share, not
+    gated;
+16. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
+    summed over [5] and [15]); the last line is the ``ok`` JSON.  SM and
+    memory clocks are sampled beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
 CPU tests; importing this module has no side effects.
@@ -1117,7 +1128,8 @@ def lane_mpjpe(out, bvh, means, stds, skeleton, T: int, lane: int = 0
 
     rec = export.result_to_bvh(out.pose[lane].cpu().numpy(), means, stds,
                                bvh, skeleton,
-                               global_pos=out.global_pos[lane].cpu().numpy())
+                               global_pos=out.global_pos[lane].cpu().numpy(),
+                               are_root_rot_incr=False)
     gt = copy.deepcopy(bvh)
     frames = (np.arange(T) + lane) % T
     gt.rotations, gt.positions = bvh.rotations[frames], bvh.positions[frames]
@@ -1147,18 +1159,29 @@ def k2_plain(mm):
         temporal_fused.forward = forward
 
 
-def _run_pipelined(engine, args, hyper: dict):
-    """``run_batch_pipelined`` under ``hyper`` overrides; outputs on the
-    CPU."""
-    from dragposer_tpu_torch.drag import engine as eng
-
+@contextlib.contextmanager
+def hyper_override(engine, **hyper):
+    """``engine.hyper`` under ``hyper`` overrides inside the block."""
     saved = engine.hyper
     engine.hyper = saved._replace(**hyper)
     try:
-        _, o = engine.run_batch_pipelined(*args, sync_k=SYNC_K)
+        yield engine
     finally:
         engine.hyper = saved
-    return eng.FrameOutput(*[x.cpu() for x in o])
+
+
+def _cpu_output(out):
+    from dragposer_tpu_torch.drag import engine as eng
+
+    return eng.FrameOutput(*[x.cpu() for x in out])
+
+
+def _run_pipelined(engine, args, hyper: dict):
+    """``run_batch_pipelined`` under ``hyper`` overrides; outputs on the
+    CPU."""
+    with hyper_override(engine, **hyper):
+        _, o = engine.run_batch_pipelined(*args, sync_k=SYNC_K)
+    return _cpu_output(o)
 
 
 def _card_and_cpu_args(gpu_engine, states, dqs, gp, gr):
@@ -1265,7 +1288,7 @@ def k2_lanes_recorded():
 def _windowed_setup(config: str, bvh, B: int, T: int):
     """``config``'s engine on the card and on the CPU, and the same initial
     states and targets for both: B lanes × T frames of the clip, lane b at
-    window phase ``b % window``."""
+    window phase ``b % window`` (for a windowed config)."""
     import torch
 
     from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
@@ -1282,8 +1305,9 @@ def _windowed_setup(config: str, bvh, B: int, T: int):
                                     skeleton=skeleton, device="cpu")
     window = cpu_engine.hyper.temporal_future_window
     states, dqs, gp, gr = lane_batch(cpu_engine, bvh, means, stds, B, T)
-    states = states._replace(current_index=(
-        torch.arange(B, dtype=torch.int32) % window).contiguous())
+    if window:
+        states = states._replace(current_index=(
+            torch.arange(B, dtype=torch.int32) % window).contiguous())
     return (gpu_engine, cpu_engine,
             *_card_and_cpu_args(gpu_engine, states, dqs, gp, gr))
 
@@ -2368,6 +2392,266 @@ def k3_entries(r: dict, fwd_name: str, bwd_name: str, source: str,
          "bound_f32_cuda_core_ms": r["bwd_bound_f32_cuda_core_ms"]}]
 
 
+# ---------------------------------------------------------------------------
+# The anchor path: engine.run / run_batch, and the offline CLI
+# ---------------------------------------------------------------------------
+
+T_ANCHOR = 48           # frames of the card-against-CPU anchor runs
+B_ANCHOR, T_ANCHOR_B = 8, 24    # the anchor against the pipelined path
+# At the full max_iter the anchor (autograd Adam, K2 rollout) and the
+# pipelined path (K1 + K2) agree by statistics only.  JAX's anchor against
+# JAX's pipeline on these inputs (8 lanes x 24 frames of the main clip, the
+# port's initial states carried over, on the CPU) read mean iterations
+# 21.880 / 21.932 (0.24% apart) and mean MPJPE 0.0219117 / 0.0219104 m
+# (1.4e-6 apart); the bounds leave room for the card's rounding.
+ANCHOR_ITER_REL = 0.02
+ANCHOR_MPJPE_M = 2e-4
+T_CLI = 64              # frames of the CLI runs' clips
+# the beam run's --restarts, --survivors, --branch-every, --max-frames: the
+# 3-tracker config's 64 lanes, 8 survivors and 512 frames cut for time (its
+# ratio of lanes to survivors kept), on the clip's first 32 frames (a
+# 3-tracker frame costs its slowest lane's ~50-100 Adam iterations)
+CLI_BEAM = ("8", "1", "16", "32")
+
+
+def kernel_counts() -> dict:
+    """K1's and K2's launch counts and their plain twins' calls."""
+    from dragposer_tpu_torch.drag import fast_iter
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    return {"K1": fast_iter.COUNTS.kernel, "K2": temporal_fused.COUNTS.kernel,
+            "K1_plain": fast_iter.COUNTS.plain,
+            "K2_plain": temporal_fused.COUNTS.plain}
+
+
+def reset_kernel_counts() -> None:
+    from dragposer_tpu_torch.drag import fast_iter
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    fast_iter.COUNTS.reset()
+    temporal_fused.COUNTS.reset()
+
+
+def anchor_card_vs_cpu(config: str, bvh, T: int = T_ANCHOR) -> dict:
+    """``DragEngine.run`` (the per-lane anchor: autograd Adam, K2 rollout
+    with the visibility mask) on the card against the same on the CPU,
+    one lane × T frames of the clip from the same initial state, in
+    lockstep at one Adam step a frame, held by :func:`one_step_lockstep`.
+    The card run must launch K2, run no plain K2 call and launch no K1."""
+    import collections
+
+    import torch
+
+    from dragposer_tpu_torch.drag import engine as eng
+
+    t_setup = time.time()
+    gpu_engine, cpu_engine, gargs, cargs = _windowed_setup(config, bvh, 1, T)
+    lane = lambda args: (eng.DragState(*[x[0] for x in args[0]]),  # noqa: E731
+                         *[a[0] for a in args[1:]])
+    lockstep = dict(KNIFE_FREE, max_iter=1)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.time()
+    with hyper_override(gpu_engine, **lockstep), \
+            k2_lanes_recorded() as lanes:
+        _, g = gpu_engine.run(*lane(gargs))
+        torch.cuda.synchronize()
+    card_s = time.time() - t0
+    counts = kernel_counts()
+    t0 = time.time()
+    with hyper_override(cpu_engine, **lockstep):
+        _, c = cpu_engine.run(*lane(cargs))
+    res = {"config": config, "lanes": 1, "T": T, "card_s": card_s,
+           "phase_s": time.time() - t_setup,
+           "cpu_s": time.time() - t0,
+           **one_step_lockstep(_cpu_output(g), c), "launches": counts,
+           "k2_launches_by_lanes": dict(collections.Counter(lanes))}
+    res["ok"] = (res.pop("one_step_ok") and counts["K2"] > 0
+                 and counts["K2_plain"] == 0 and counts["K1"] == 0
+                 and counts["K1_plain"] == 0)
+    return res
+
+
+def anchor_vs_pipeline(engine, bvh, means, stds, skeleton,
+                       B: int = B_ANCHOR, T: int = T_ANCHOR_B) -> dict:
+    """``run_batch`` (the anchor) against ``run_batch_pipelined`` (K1 + K2),
+    both on the card, B lanes × T frames of the clip from the same initial
+    states: in lockstep at one Adam step a frame (the one-step gate), and
+    at the full ``max_iter`` by statistics (mean iterations within
+    ``ANCHOR_ITER_REL``, the lanes' mean MPJPE within ``ANCHOR_MPJPE_M``).
+    The anchor runs must launch no K1."""
+    import torch
+
+    t_setup = time.time()
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T)
+    args = (states, dqs, gp, gr)
+    res = {"B": B, "T": T}
+    anchor_counts = []
+
+    def anchor(**hyper):
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.time()
+        with hyper_override(engine, **hyper):
+            _, o = engine.run_batch(*args)
+        torch.cuda.synchronize()
+        anchor_counts.append(kernel_counts())
+        return _cpu_output(o), time.time() - t0
+
+    def pipelined(**hyper):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with hyper_override(engine, **hyper):
+            _, o = engine.run_batch_pipelined(*args, sync_k=SYNC_K)
+        torch.cuda.synchronize()
+        return _cpu_output(o), time.time() - t0
+
+    lockstep = dict(KNIFE_FREE, max_iter=1)
+    a1, _ = anchor(**lockstep)
+    p1, _ = pipelined(**lockstep)
+    res.update(one_step_lockstep(a1, p1))
+    a, res["anchor_s"] = anchor()
+    p, res["pipelined_s"] = pipelined()
+    stats = {}
+    for name, o in (("anchor", a), ("pipelined", p)):
+        stats[name] = {
+            "mean_iterations": float(o.iterations.float().mean()),
+            "mean_mpjpe_m": float(np.mean([
+                lane_mpjpe(o, bvh, means, stds, skeleton, T, i)
+                for i in range(B)]))}
+    res.update(stats=stats, anchor_launches=anchor_counts,
+               phase_s=time.time() - t_setup,
+               bounds={"iterations_rel": ANCHOR_ITER_REL,
+                       "mpjpe_m": ANCHOR_MPJPE_M})
+    it_a = stats["anchor"]["mean_iterations"]
+    it_p = stats["pipelined"]["mean_iterations"]
+    res["ok"] = (res.pop("one_step_ok")
+                 and abs(it_a - it_p) <= ANCHOR_ITER_REL * it_p
+                 and abs(stats["anchor"]["mean_mpjpe_m"]
+                         - stats["pipelined"]["mean_mpjpe_m"])
+                 <= ANCHOR_MPJPE_M
+                 and all(c["K1"] == 0 and c["K1_plain"] == 0
+                         and c["K2"] > 0 and c["K2_plain"] == 0
+                         for c in anchor_counts))
+    return res
+
+
+def cli_runs(work_dir: str = os.path.join(WORK_DIR, "cli")) -> list:
+    """The offline CLI on the card through ``cli.eval_drag.main``, four
+    runs on seeded synthetic clips of ``T_CLI`` frames, launch counts set
+    to 0 just before each and read just after: one file at 6 trackers
+    (``evaluate_file`` → ``engine.run``: K2, no K1), ``--batch`` over two
+    files with 4 restarts (the pipelined batch: K1 and K2), the 3-tracker
+    beam on one file (``run_batch``: K2, no K1; ``CLI_BEAM``) and ``--batch``
+    with constraints (the pipeline's per-lane loop: K2, no K1).  Each must
+    give finite MPJPE and jitter (read back from the written BVH)."""
+    import io
+
+    import torch
+
+    from dragposer_tpu_torch import metrics
+    from dragposer_tpu_torch.cli import eval_drag
+    from dragposer_tpu_torch.io.bvh import BVH
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(os.path.join(work_dir, "clips"))
+    files = write_synthetic_clips(os.path.join(work_dir, "clips"),
+                                  (T_CLI, T_CLI), SEED + 1)
+    runs = (("one file, 6_trackers (evaluate_file -> engine.run)",
+             files[:1], [], False),
+            ("--batch, 2 files, --restarts 4", files, ["--batch",
+                                                       "--restarts", "4"],
+             True),
+            (f"3_trackers beam, --restarts {CLI_BEAM[0]} --survivors "
+             f"{CLI_BEAM[1]} --branch-every {CLI_BEAM[2]} --max-frames "
+             f"{CLI_BEAM[3]} (cut from 64, 8 and 512 and the clip's "
+             f"{T_CLI} frames for time)", files[:1],
+             ["--config", "3_trackers", "--restarts", CLI_BEAM[0],
+              "--survivors", CLI_BEAM[1], "--branch-every", CLI_BEAM[2],
+              "--max-frames", CLI_BEAM[3]], False),
+            ("--batch, 2 files, --constraints feet_floor:0.1,"
+             "head_hips_colinear:0.05 (per-lane inner loop)", files,
+             ["--batch", "--constraints",
+              "feet_floor:0.1,head_hips_colinear:0.05"], False))
+    out = []
+    for i, (name, inputs, flags, k1_expected) in enumerate(runs):
+        save = os.path.join(work_dir, f"run{i}")
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            results = eval_drag.main([MODEL_DIR, *inputs, "--save-dir", save,
+                                      *flags])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = kernel_counts()
+        jit = [metrics.jitter(BVH().load(os.path.join(
+            save, "eval_" + os.path.basename(f)))) for f in inputs]
+        per_file = (int(flags[flags.index("--max-frames") + 1])
+                    if "--max-frames" in flags else T_CLI)
+        frames = per_file * len(inputs)
+        r = {"run": name, "seconds": seconds, "frames": frames,
+             "frames_per_s": frames / seconds,
+             "mpjpe_m": [m for m, _ in results], "jitter_m_s3": jit,
+             "launches": counts,
+             "said": [ln for ln in text.getvalue().splitlines()
+                      if ln.startswith(("restarts:", "hypotheses:",
+                                        "constraints active"))]}
+        r["ok"] = (len(results) == len(inputs)
+                   and bool(np.isfinite(r["mpjpe_m"]).all())
+                   and bool(np.isfinite(jit).all())
+                   and counts["K2"] > 0 and counts["K2_plain"] == 0
+                   and counts["K1_plain"] == 0
+                   and (counts["K1"] > 0) == k1_expected)
+        out.append(r)
+    return out
+
+
+def anchor_timing(engine, bvh, means, stds, T: int = 24, B: int = 64,
+                  T_batch: int = 6, T_profile: int = 2) -> dict:
+    """Not gated: ``engine.run`` frames/s at B = 1 over T frames of the
+    clip and ``run_batch`` at B lanes over its first ``T_batch`` (a frame
+    costs its slowest lane's iterations, 100 at B = 64), 6 trackers, the
+    full stop rule; and the device's busy time and idle share over the
+    first ``T_profile`` frames of the single lane under ``torch.profiler``
+    (a frame is ~30,000 profiler events, whose processing takes seconds
+    a frame).  The frame counts are cut from 48, 48 and 8 for time."""
+    import torch
+
+    from dragposer_tpu_torch.drag import engine as eng
+
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T)
+    one = (eng.DragState(*[x[0] for x in states]), dqs[0], gp[0], gr[0])
+    res = {"card": gpu_clocks()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, o1 = engine.run(*one)
+    torch.cuda.synchronize()
+    s1 = time.time() - t0
+    t0 = time.time()
+    _, ob = engine.run_batch(states, dqs[:, :T_batch], gp[:, :T_batch],
+                             gr[:, :T_batch])
+    torch.cuda.synchronize()
+    sb = time.time() - t0
+    res.update({
+        "run_B1": {"T": T, "seconds": s1, "frames_per_s": T / s1,
+                   "mean_iterations": float(o1.iterations.float().mean())},
+        f"run_batch_B{B}": {"T": T_batch, "seconds": sb,
+                            "frames_per_s": B * T_batch / sb,
+                            "mean_iterations":
+                                float(ob.iterations.float().mean()),
+                            "iterations_a_frame_max_over_lanes": float(
+                                ob.iterations.max(dim=0).values.float()
+                                .mean())}})
+    prof = profile_device_time(
+        lambda: engine.run(one[0], *[a[:T_profile] for a in one[1:]]),
+        {"K2": "temporal_forward_kernel"})
+    res[f"profile_run_B1_{T_profile}_frames"] = prof
+    return res
+
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
@@ -2651,6 +2935,38 @@ def main() -> int:
     if not loop["ok"]:
         fail(f"the trained models do not drive the serving path: {loop}")
 
+    # ---- the anchor path and the offline CLI ----
+    t15 = time.time()
+    anchor_launches = []
+    for config in ("6_trackers", "4_trackers"):
+        r = anchor_card_vs_cpu(config, bvh)
+        anchor_launches.append(r["launches"])
+        print(f"[15] anchor engine.run on the card vs on the CPU, {config}, "
+              f"1 lane x {T_ANCHOR} frames, one Adam step a frame: "
+              + json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"the anchor on the card disagrees with the CPU's, or its "
+                 f"kernels are not K2 alone: {r}")
+    r = anchor_vs_pipeline(engine, bvh, means, stds, skeleton)
+    anchor_launches += r["anchor_launches"]
+    print(f"[15] anchor run_batch vs run_batch_pipelined (K1 + K2) on the "
+          f"card, B={B_ANCHOR} x {T_ANCHOR_B} frames: " + json.dumps(r),
+          flush=True)
+    if not r["ok"]:
+        fail(f"the anchor and the pipelined path disagree: {r}")
+    for r in cli_runs():
+        anchor_launches.append(r["launches"])
+        print("[15] CLI on the card (cli.eval_drag.main): " + json.dumps(r),
+              flush=True)
+        if not r["ok"]:
+            fail(f"a CLI run failed its checks: {r}")
+    r = anchor_timing(engine, bvh, means, stds)
+    r["nvidia_smi"] = smi
+    r["phase_15_s"] = time.time() - t15
+    print("[15] anchor timing, 6_trackers (not gated): " + json.dumps(r),
+          flush=True)
+    anchor_k = {k: sum(c[k] for c in anchor_launches) for k in ("K1", "K2")}
+
     def launched(layout, name):
         return sum(r["launches"][name] for r in runs[layout].values())
 
@@ -2658,7 +2974,10 @@ def main() -> int:
         {"name": "K1 drag-iteration block", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/iter_block.cu",
          "replaces": "dragposer_tpu/drag/iter_kernel.py:349",
-         "launches": launches["K1"], "max_abs_err": k1_main["max_abs_err"],
+         "launches": launches["K1"] + anchor_k["K1"],
+         "launches_by_path": {"main [5]": launches["K1"],
+                              "anchor phase [15]": anchor_k["K1"]},
+         "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None,
@@ -2669,7 +2988,10 @@ def main() -> int:
         {"name": "K2 temporal-transformer forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/temporal_forward.cu",
          "replaces": "dragposer_tpu/ops/temporal_fused.py:248",
-         "launches": launches["K2"], "max_abs_err": k2_main["max_abs_err"],
+         "launches": launches["K2"] + anchor_k["K2"],
+         "launches_by_path": {"main [5]": launches["K2"],
+                              "anchor phase [15]": anchor_k["K2"]},
+         "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"],
@@ -2711,13 +3033,13 @@ def main() -> int:
              "bwd_plain_ms", "bwd_bound_ms")
     k3_times = (*times, "fwd_device_ms", "bwd_device_ms",
                 "fwd_bound_f32_cuda_core_ms", "bwd_bound_f32_cuda_core_ms")
-    print("[15] the same kernels at B=4096, the batch the JAX package "
+    print("[16] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
               "K3a/K3b": {k: k3r_big[k] for k in k3_times},
               "K3c/K3d": {k: k3_big[k] for k in k3_times},
               "K4": {k: k4_big[k] for k in (*times, "library_fwd_ms",
                                             "library_bwd_ms")}}), flush=True)
-    print(f"[15] total {time.time() - t_start:.1f} s")
+    print(f"[16] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

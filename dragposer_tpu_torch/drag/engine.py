@@ -1,5 +1,8 @@
-"""The drag runtime's types and per-frame building blocks, the parts the
-batched pipelined path uses (port of ``dragposer_tpu/drag/engine.py``).
+"""The drag runtime (port of ``dragposer_tpu/drag/engine.py``): the types,
+the per-lane *anchor* path (``_drag_loss`` → ``_opt_body`` → ``frame_step``
+→ ``run_sequence``, the ``DragEngine`` methods ``run``, ``run_batch``,
+``step`` and ``step_realtime``) and the building blocks the pipelined path
+(``drag/pipeline.py``) shares with it.
 
 Every function here works on a batch: leaves lead with the lane axis
 ``B`` (the JAX package writes them per lane and ``vmap``s them).  The
@@ -7,7 +10,9 @@ reference behaviours the JAX module lists hold here too:
 
 * a fresh Adam state every frame;
 * the stop rule ``(loss_pos > εp or loss_rot > εr) and iters < max_iter and
-  loss_incr > min_incr`` on the previous iteration's values;
+  loss_incr > min_incr`` on the previous iteration's values; a lane whose
+  rule is false keeps its carry (the masking of a ``while_loop`` under
+  ``vmap``);
 * the ring buffers record the latent *before* the final Adam step;
 * the temporal rollout's mask is a per-step *visibility* mask (all rows see
   columns ≤ k), not a causal mask;
@@ -17,8 +22,10 @@ reference behaviours the JAX module lists hold here too:
 * heights add the already-advanced global position to FK positions that
   are relative to the previous root (component index 1).
 
-Not ported yet: the per-lane anchor (``_drag_loss``, ``_opt_body``,
-``run_sequence``, ``step``) and constraints.
+The anchor takes its gradient with ``torch.autograd`` (the JAX anchor's
+``jax.value_and_grad``), never through kernel K1 or its twin
+``fast_iter``: that independence makes it the oracle of the fast path.  Its
+rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.models import loading, vae
-from dragposer_tpu_torch.ops import temporal_fused
+from dragposer_tpu_torch.ops import fk, quat, temporal_fused
 from dragposer_tpu_torch.ops.topology import Skeleton
 
 
@@ -49,7 +56,9 @@ class DragHyper(NamedTuple):
     use_temporal: bool = True
     joint_adjustment: Optional[Tuple[int, int]] = (0, 0)  # (joint, ee joint)
     joint_adjustment_weight: float = 1.0
-    constraints: Tuple[Tuple[Any, float], ...] = ()  # not ported: must be ()
+    # ``(fn, weight)`` pairs, ``fn``: ConstraintContext → (B,); the weighted
+    # sum joins the drag objective (``drag/constraints.py``)
+    constraints: Tuple[Tuple[Any, float], ...] = ()
 
 
 class DragModel(NamedTuple):
@@ -123,11 +132,12 @@ def _quat_stats(model: DragModel):
 
 def init_state(model: DragModel, statics: vae.VAEStatics, hyper: DragHyper,
                generator: torch.Generator, initial_pose, initial_global_pos,
-               initial_global_rot, initial_heights) -> DragState:
+               initial_global_rot, initial_heights, noise=None) -> DragState:
     """Encode the initial poses (B, J*8, T) to seed the latents and tile the
-    ring buffers (reference ``drag_pose.py:47-64``)."""
+    ring buffers (reference ``drag_pose.py:47-64``).  ``noise`` (B, L)
+    replaces the draw from ``generator`` when given."""
     mu, logvar = vae.encode(model.encoder, statics, initial_pose)
-    latent = vae.reparameterize(generator, mu, logvar)
+    latent = vae.reparameterize(generator, mu, logvar, noise)
     B, L = latent.shape
     past_size = hyper.past_frames[-1] + hyper.sample_step
     zeros = lambda *s: torch.zeros(s, device=latent.device)  # noqa: E731
@@ -221,9 +231,148 @@ def _rollout_where_needed(model: DragModel, hyper: DragHyper, tparam,
     return torch.where(need[:, None, None], new_buffer, target_buffer)
 
 
+def _rollout_inputs(state: DragState, hyper: DragHyper):
+    """The predictor's inputs from the (B, P, ·) ring buffers: sampled
+    latents (B, P'-1, L), accumulated displacements (B, P'-1, 3), heights
+    (B, P'-1, H) and the newest sampled latent (B, L)."""
+    past = torch.as_tensor(hyper.past_frames, device=state.latent.device)
+    step = hyper.sample_step
+    latp = state.latent_buffer[:, past]
+    acc = past[:-1, None] + torch.arange(step, device=past.device)[None]
+    disp_acc = state.displacement_buffer[:, acc].sum(dim=2)
+    heights = state.heights_buffer[:, past[:-1]]
+    return latp[:, :-1], disp_acc, heights, latp[:, -1]
+
+
+def _temporal_rollout(model: DragModel, hyper: DragHyper, tparam,
+                      state: DragState):
+    """The new target buffer (B, W+1, L) of every lane.  The JAX anchor's
+    per-lane ``_temporal_rollout_core`` runs the rows forward; its batched
+    counterpart here is :func:`_temporal_rollout_core_T`, K2 on a CUDA
+    tensor, with the same visibility mask."""
+    return _temporal_rollout_core_T(model, hyper, tparam,
+                                    *_rollout_inputs(state, hyper))
+
+
+def _begin_frame(model: DragModel, hyper: DragHyper, tparam,
+                 state: DragState):
+    """Start-of-frame work (reference ``drag_pose.py:256-295``): the
+    rollout for the lanes at a window boundary (``current_index == 0``;
+    every frame at window 0), then each lane's temporal target.  Returns
+    ``(target_buffer (B, W+1, L), target_latent (B, L))``.  For windowed
+    configs a frame where no lane is at a boundary runs no rollout (a host
+    check, as the JAX anchor's ``lax.cond``)."""
+    if not hyper.use_temporal:
+        return state.target_buffer, torch.zeros_like(state.latent)
+    need = state.current_index == 0
+    if hyper.temporal_future_window == 0 or bool(need.any()):
+        target_buffer = _rollout_where_needed(
+            model, hyper, tparam, *_rollout_inputs(state, hyper), need,
+            state.target_buffer)
+    else:
+        target_buffer = state.target_buffer
+    ar = torch.arange(state.latent.shape[0], device=state.latent.device)
+    return target_buffer, target_buffer[ar, state.current_index.long()]
+
+
+# ---------------------------------------------------------------------------
+# The per-frame loss (differentiated with respect to the latent)
+# ---------------------------------------------------------------------------
+
+class ConstraintContext(NamedTuple):
+    """What a constraint loss may read, batched.  ``positions``/``rotmats``
+    are world-oriented with the previous frame's root as origin;
+    ``positions + global_pos[:, None]`` is world space."""
+
+    latent: torch.Tensor       # (B, L) the optimized variable
+    pose: torch.Tensor         # (B, J*4) normalized decoder output
+    positions: torch.Tensor    # (B, J, 3) FK positions, previous root = origin
+    world_quats: torch.Tensor  # (B, J, 4) world joint rotations
+    rotmats: torch.Tensor      # (B, J, 3, 3)
+    global_pos: torch.Tensor   # (B, 3) previous frame's global root position
+    world_displacement: torch.Tensor  # (B, 3) this frame's root displacement
+
+
+def _is_folded(decoder) -> bool:
+    return isinstance(decoder, dict) and "ws" in decoder
+
+
+def _decode(model: DragModel, statics, latent):
+    """latent (..., L) → (pose_n (..., J*4), normalized displacement
+    (..., 3)) through the folded decoder, or the unfolded one
+    (``vae.decode``) when the model carries its parameter tree."""
+    if _is_folded(model.decoder):
+        return vae.decode_folded_flat(model.decoder, latent, model.mean_dqs,
+                                      model.std_dqs)
+    lead = latent.shape[:-1]
+    pose_n, disp_n = vae.decode(model.decoder, statics,
+                                latent.reshape(-1, latent.shape[-1]),
+                                model.mean_dqs, model.std_dqs)
+    return (pose_n[..., 0].reshape(lead + (-1,)),
+            disp_n[..., 0].reshape(lead + (-1,)))
+
+
+def _drag_loss(latent, model: DragModel, statics, skeleton: Skeleton,
+               hyper: DragHyper, global_pos, global_rot, target_ee_pos,
+               target_ee_rot, target_latent):
+    """Reference ``DragPose.loss`` (``drag_pose.py:66-194``), dense-masked,
+    per lane: latent (B, L), global_pos (B, 3), global_rot (B, 4), targets
+    (B, J, 3) and (B, J, 3, 3), target_latent (B, L) → (total (B,),
+    :class:`_LossAux`).  Lanes are independent, so the gradient of
+    ``total.sum()`` is each lane's own."""
+    mean_q, std_q = _quat_stats(model)
+    pose_n, disp_n = _decode(model, statics, latent)
+    disp = disp_n * model.std_disp + model.mean_disp
+    qs = (pose_n * std_q + mean_q).unflatten(-1, (-1, 4))
+
+    world_rotation = quat.mul(global_rot, qs[:, 0])     # incremental → world
+    rs = torch.cat((world_rotation[:, None], qs[:, 1:]), dim=1)
+    world_displacement = quat.mul_vec(world_rotation, disp)
+    positions, world_quats = fk.fk_root_space(rs, world_displacement,
+                                              skeleton)
+    rotmats = quat.to_matrix(world_quats)
+
+    mask = model.mask                                   # (J,) or (B, J)
+    n_ee = torch.clamp(mask.sum(dim=-1), min=1.0)
+    w_pos = mask * model.weights[..., 0]
+    w_rot = mask * model.weights[..., 1]
+    loss_pos = torch.sum(w_pos[..., None] * (positions - target_ee_pos) ** 2,
+                         dim=(-2, -1)) / (n_ee * 3.0)
+    loss_rot = torch.sum(w_rot[..., None, None]
+                         * (rotmats - target_ee_rot) ** 2,
+                         dim=(-3, -2, -1)) / (n_ee * 9.0)
+    loss_temporal = torch.mean((latent - target_latent) ** 2, dim=-1)
+
+    loss_rot = loss_rot * hyper.lambda_rot
+    lam_t = hyper.lambda_temporal if hyper.use_temporal else 0.0
+    total = loss_pos + loss_rot + loss_temporal * lam_t
+    if hyper.constraints:
+        ctx = ConstraintContext(
+            latent=latent, pose=pose_n, positions=positions,
+            world_quats=world_quats, rotmats=rotmats, global_pos=global_pos,
+            world_displacement=world_displacement)
+        for fn, weight in hyper.constraints:
+            total = total + weight * fn(ctx)
+    aux = _LossAux(loss_pos=loss_pos, loss_rot=loss_rot,
+                   world_displacement=world_displacement, displacement=disp,
+                   world_rotation=world_rotation, positions=positions,
+                   pose=pose_n)
+    return total, aux
+
+
 # ---------------------------------------------------------------------------
 # Optimizer bookkeeping and the end of a frame
 # ---------------------------------------------------------------------------
+
+def _select(mask, new, old):
+    """Per-lane select over NamedTuples whose leaves lead with B."""
+    def sel(n, o):
+        if isinstance(n, tuple):
+            return type(n)(*[sel(a, b) for a, b in zip(n, o)])
+        return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
+                           n, o)
+    return sel(new, old)
+
 
 def _opt_cond(c: _OptCarry, hyper: DragHyper):
     """The reference stop rule on the previous iteration's values."""
@@ -254,6 +403,50 @@ def _opt_init(latent0, n_joints: int) -> _OptCarry:
             world_rotation=world_rotation,
             positions=zeros(n_joints, 3), pose=zeros(n_joints * 4)),
     )
+
+
+def _opt_body(c: _OptCarry, model: DragModel, statics, skeleton: Skeleton,
+              hyper: DragHyper, global_pos, global_rot, target_ee_pos,
+              target_ee_rot, target_latent) -> _OptCarry:
+    """One Adam iteration on every lane's latent (loss, autograd gradient,
+    update); the caller masks the lanes whose stop rule is false."""
+    with torch.enable_grad():
+        z = c.latent.detach().requires_grad_(True)
+        total, aux = _drag_loss(z, model, statics, skeleton, hyper,
+                                global_pos, global_rot, target_ee_pos,
+                                target_ee_rot, target_latent)
+        (g,) = torch.autograd.grad(total.sum(), z)
+    total = total.detach()
+    aux = _LossAux(*[a.detach() for a in aux])
+    t = c.t + 1
+    m = _ADAM_B1 * c.m + (1.0 - _ADAM_B1) * g
+    v = _ADAM_B2 * c.v + (1.0 - _ADAM_B2) * g * g
+    tf = t.to(torch.float32)
+    m_hat = m / (1.0 - _ADAM_B1 ** tf)[:, None]
+    v_hat = v / (1.0 - _ADAM_B2 ** tf)[:, None]
+    latent = c.latent - hyper.learning_rate * m_hat / (torch.sqrt(v_hat)
+                                                       + _ADAM_EPS)
+    return _OptCarry(latent=latent, m=m, v=v, t=t, prev_loss=total,
+                     loss_pos=aux.loss_pos, loss_rot=aux.loss_rot,
+                     loss_incr=c.prev_loss - total, decoded_latent=c.latent,
+                     aux=aux)
+
+
+def _optimize(latent0, model: DragModel, statics, skeleton: Skeleton,
+              hyper: DragHyper, global_pos, global_rot, target_ee_pos,
+              target_ee_rot, target_latent) -> _OptCarry:
+    """Fresh Adam from ``latent0`` (B, L) until no lane's stop rule holds.
+    Lanes whose rule is false keep their carry; the loop's end is a host
+    check of the rule once per iteration."""
+    c = _opt_init(latent0, skeleton.n_joints)
+    while True:
+        active = _opt_cond(c, hyper)
+        if not bool(active.any()):
+            return c
+        new = _opt_body(c, model, statics, skeleton, hyper, global_pos,
+                        global_rot, target_ee_pos, target_ee_rot,
+                        target_latent)
+        c = _select(active, new, c)
 
 
 def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
@@ -289,6 +482,98 @@ def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
     return global_pos, global_rot, displacement, heights, current_index, out
 
 
+def _finish_frame(model: DragModel, hyper: DragHyper, state: DragState,
+                  final: _OptCarry, target_buffer, target_ee_pos):
+    """End-of-frame work on the (B, P, ·) ring buffers: advance, then
+    shift each buffer by one row."""
+    B = state.latent.shape[0]
+    adj = (target_ee_pos[:, hyper.joint_adjustment[1]]
+           if hyper.joint_adjustment is not None
+           else torch.zeros(B, 3, device=state.latent.device))
+    global_pos, global_rot, displacement, heights, current_index, out = \
+        _advance_core(model, hyper, state.global_pos, state.current_index,
+                      final, adj)
+    def shift(buf, row):
+        return torch.cat((buf[:, 1:], row[:, None]), dim=1)
+
+    new_state = DragState(
+        latent=final.latent, global_pos=global_pos, global_rot=global_rot,
+        latent_buffer=shift(state.latent_buffer, final.decoded_latent),
+        displacement_buffer=shift(state.displacement_buffer, displacement),
+        heights_buffer=shift(state.heights_buffer, heights),
+        target_buffer=target_buffer, current_index=current_index)
+    return new_state, out
+
+
+def frame_step(model: DragModel, statics, skeleton: Skeleton,
+               hyper: DragHyper, tparam, state: DragState, target_ee_pos,
+               target_ee_rot):
+    """One frame of drag optimization on every lane (reference
+    ``DragPose.run``): targets (B, J, 3) (any value at inactive joints)
+    and (B, J, 3, 3) → ``(new state, FrameOutput)``."""
+    target_buffer, target_latent = _begin_frame(model, hyper, tparam, state)
+    final = _optimize(state.latent, model, statics, skeleton, hyper,
+                      state.global_pos, state.global_rot, target_ee_pos,
+                      target_ee_rot, target_latent)
+    return _finish_frame(model, hyper, state, final, target_buffer,
+                         target_ee_pos)
+
+
+def _eval_targets(model: DragModel, skeleton: Skeleton, state,
+                  dqs_norm, gt_global_pos, gt_global_rot):
+    """End-effector targets from ground truth (reference
+    ``eval_drag.py:164-202``): dqs_norm (B, J*8), gt_global_pos (B, 3),
+    gt_global_rot (B, 4) → ((B, J, 3), (B, J, 3, 3)).  Reads
+    ``state.global_pos`` only."""
+    mean_q, std_q = _quat_stats(model)
+    B = dqs_norm.shape[0]
+    qs = (dqs_norm.reshape(B, -1, 8)[..., :4] * std_q.reshape(-1, 4)
+          + mean_q.reshape(-1, 4))
+    rs = torch.cat((gt_global_rot[:, None], qs[:, 1:]), dim=1)
+    positions, world_quats = fk.fk_root_space(
+        rs, gt_global_pos - state.global_pos, skeleton)
+    return positions, quat.to_matrix(world_quats)
+
+
+def eval_frame_step(model, statics, skeleton, hyper, tparam, state,
+                    frame_inputs):
+    dqs_norm, gt_pos, gt_rot = frame_inputs
+    tpos, trot = _eval_targets(model, skeleton, state, dqs_norm, gt_pos,
+                               gt_rot)
+    return frame_step(model, statics, skeleton, hyper, tparam, state, tpos,
+                      trot)
+
+
+def run_sequence(model, statics, skeleton, hyper: DragHyper, tparam,
+                 state: DragState, dqs_norm, gt_pos, gt_rot):
+    """Reconstruct every lane's sequence, frame by frame: dqs_norm
+    (B, T, J*8), gt_pos (B, T, 3), gt_rot (B, T, 4) → (final state,
+    FrameOutput with leaves (B, T, ...))."""
+    outs = []
+    for f in range(dqs_norm.shape[1]):
+        state, out = eval_frame_step(
+            model, statics, skeleton, hyper, tparam, state,
+            (dqs_norm[:, f], gt_pos[:, f], gt_rot[:, f]))
+        outs.append(out)
+    return state, FrameOutput(*[torch.stack(x, dim=1) for x in zip(*outs)])
+
+
+def to_host(out: FrameOutput) -> FrameOutput:
+    """``out``'s leaves as numpy arrays (waits for the device)."""
+    return FrameOutput(*[x.cpu().numpy() if torch.is_tensor(x) else x
+                         for x in out])
+
+
+def _lead(tree):
+    """Add the lane axis to every leaf."""
+    return type(tree)(*[x[None] for x in tree])
+
+
+def _lane(tree):
+    """Drop the lane axis (of size 1) from every leaf."""
+    return type(tree)(*[x[0] for x in tree])
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -320,8 +605,16 @@ class DragEngine:
     device (``cuda`` unless ``device="cpu"``).
 
     * ``init_state(generator, poses, gp, gr, heights)`` — batched encode;
-    * ``run_batch_pipelined(states, dqs, gp, gr, sync_k, lengths)`` — the
-      pipelined batched reconstruction (``drag/pipeline.py``).
+    * ``run(state, dqs, gp, gr)`` — the anchor over one sequence: state
+      leaves without the lane axis, inputs (T, ...);
+    * ``run_batch(states, dqs, gp, gr)`` — the same on a batch (B, T, ...);
+    * ``step(state, tpos, trot)`` — one frame of one lane from dense targets
+      (J, 3) and (J, 3, 3);
+    * ``step_realtime(state, tpos, trot_quats)`` — ``step`` from quaternion
+      targets (J, 4), returning parent-local quaternions (J, 4) and the
+      global root position (3,);
+    * ``run_batch_pipelined(states, dqs, gp, gr, sync_k, lengths, fast)`` —
+      the pipelined batched reconstruction (``drag/pipeline.py``).
     """
 
     def __init__(self, model: DragModel, statics, skeleton: Skeleton,
@@ -336,18 +629,58 @@ class DragEngine:
     def tensor(self, a, dtype=torch.float32):
         if torch.is_tensor(a):
             return a.to(device=self.device, dtype=dtype)
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        return torch.as_tensor(np.array(a), dtype=dtype, device=self.device)
+
+    def on_device(self, state: DragState) -> DragState:
+        """``state``'s leaves (tensors, numpy or the JAX package's arrays)
+        on this engine's device, floats as float32."""
+        def leaf(a):
+            a = a if torch.is_tensor(a) else torch.as_tensor(np.array(a))
+            return a.to(self.device, torch.float32 if a.is_floating_point()
+                        else a.dtype)
+        return DragState(*[leaf(a) for a in state])
 
     def init_state(self, generator: torch.Generator, initial_pose,
                    initial_global_pos, initial_global_rot,
-                   initial_heights) -> DragState:
+                   initial_heights, noise=None) -> DragState:
         t = self.tensor
         return init_state(self.model, self.statics, self.hyper, generator,
                           t(initial_pose), t(initial_global_pos),
-                          t(initial_global_rot), t(initial_heights))
+                          t(initial_global_rot), t(initial_heights),
+                          None if noise is None else t(noise))
+
+    def run_batch(self, states: DragState, dqs_norm, gt_pos, gt_rot):
+        t = self.tensor
+        return run_sequence(self.model, self.statics, self.skeleton,
+                            self.hyper, self.tparam, self.on_device(states),
+                            t(dqs_norm), t(gt_pos), t(gt_rot))
+
+    def run(self, state: DragState, dqs_norm, gt_pos, gt_rot):
+        t = self.tensor
+        new, out = self.run_batch(_lead(self.on_device(state)),
+                                  t(dqs_norm)[None], t(gt_pos)[None],
+                                  t(gt_rot)[None])
+        return _lane(new), _lane(out)
+
+    def step(self, state: DragState, target_ee_pos, target_ee_rot):
+        t = self.tensor
+        new, out = frame_step(self.model, self.statics, self.skeleton,
+                              self.hyper, self.tparam,
+                              _lead(self.on_device(state)),
+                              t(target_ee_pos)[None], t(target_ee_rot)[None])
+        return _lane(new), _lane(out)
+
+    def step_realtime(self, state: DragState, target_ee_pos,
+                      target_ee_rot_quats):
+        new, out = self.step(state, target_ee_pos, quat.to_matrix(
+            self.tensor(target_ee_rot_quats)))
+        mean_q, std_q = _quat_stats(self.model)
+        rs = (out.pose * std_q + mean_q).reshape(-1, 4)
+        return new, fk.from_root_quat(rs, self.skeleton), out.global_pos
 
     def run_batch_pipelined(self, states: DragState, dqs_norm, gt_pos,
-                            gt_rot, sync_k: int = 24, lengths=None):
+                            gt_rot, sync_k: int = 24, lengths=None,
+                            fast: Optional[bool] = None):
         from dragposer_tpu_torch.drag import pipeline
 
         t = self.tensor
@@ -356,4 +689,4 @@ class DragEngine:
         return pipeline.run_batch_pipelined(
             self.model, self.statics, self.skeleton, self.hyper, self.tparam,
             states, t(dqs_norm), t(gt_pos), t(gt_rot), sync_k=sync_k,
-            lengths=lengths)
+            lengths=lengths, fast=fast)

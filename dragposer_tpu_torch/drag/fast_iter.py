@@ -255,7 +255,7 @@ def run_block(ctx: FastContext, hyper: eng.DragHyper, sync_k: int,
     ``_OptCarry`` (aux recomputed at the decoded latent).  K1's plain twin.
     Targets arrive transposed: ``tposT`` (J, 3, B), ``trotT`` (J, 3, 3, B).
     (The JAX function's ``model``/``statics``/``skeleton`` arguments serve
-    constraints, which the port does not take yet.)"""
+    constraints, which take the pipeline's per-lane loop here.)"""
     COUNTS.plain += 1
     grT = state.global_rot.T
     tlatT = target_latent.T

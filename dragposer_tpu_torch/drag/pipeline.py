@@ -9,10 +9,13 @@ kernel K2, ground-truth targets, fresh Adam).  A straggler frame in one
 lane does not stall the others.  The pose is decoded once, after the loop,
 from the stored per-frame latents.
 
-The loop's ``any(frame < limit)`` is a host check once per block.  Only the
-batch-in-lanes fast path is ported: non-empty ``hyper.constraints`` or an
-unfolded decoder raise ``NotImplementedError`` (the JAX package falls back
-to a per-lane path there).
+The loop's ``any(frame < limit)`` is a host check once per block.  The
+inner loop is K1 (the batch-in-lanes fast path) unless ``hyper.constraints``
+is set or the decoder is unfolded: then each block runs up to ``sync_k``
+masked iterations of the anchor's ``engine._opt_body`` (autograd, targets
+per lane (B, J, ·)), ending early, by a host check an iteration, once no
+lane is active (the JAX package's ``fast=False``).  K2 does the rollout in
+both.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ import torch
 
 from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.drag import fast_iter, iter_kernel
-from dragposer_tpu_torch.models import vae
 
 
 class _FlatState(NamedTuple):
@@ -64,16 +66,6 @@ def _unflatten_state(f: _FlatState, P: int) -> eng.DragState:
         target_buffer=f.target_buffer, current_index=f.current_index)
 
 
-def _select(mask, new, old):
-    """Per-lane select over NamedTuples whose leaves lead with B."""
-    def sel(n, o):
-        if isinstance(n, tuple):
-            return type(n)(*[sel(a, b) for a, b in zip(n, o)])
-        return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
-                           n, o)
-    return sel(new, old)
-
-
 def _write_rows(buf, frame, done, val):
     """``buf`` (B, T, ...) ← ``val`` (B, ...) at each lane's ``frame`` where
     ``done`` (a gather, a select and a scatter of B rows)."""
@@ -85,24 +77,29 @@ def _write_rows(buf, frame, done, val):
 def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
                         hyper: eng.DragHyper, tparam,
                         states: eng.DragState, dqs_norm, gt_pos, gt_rot,
-                        sync_k: int = 24, lengths=None):
+                        sync_k: int = 24, lengths=None,
+                        fast: bool | None = None):
     """Batched reconstruction.  ``states`` batched; ``dqs_norm`` (B, T, J*8),
     ``gt_pos`` (B, T, 3), ``gt_rot`` (B, T, 4); ``lengths`` (B,) optional
     per-lane frame counts (lanes halt there; outputs beyond are zeros).
+    ``fast`` picks the inner loop: K1 (``True``) or the per-lane anchor
+    step (``False``); ``None`` takes K1 whenever it can (no constraints, a
+    folded decoder), and ``True`` where it cannot raises.
     Returns (final states, FrameOutput with leaves (B, T, ...))."""
-    if hyper.constraints:
-        raise NotImplementedError("constraints are not ported to the "
-                                  "pipelined path yet")
-    if not (isinstance(model.decoder, dict) and "ws" in model.decoder):
-        raise NotImplementedError("the pipelined path needs the folded "
-                                  "decoder")
+    eligible = not hyper.constraints and eng._is_folded(model.decoder)
+    if fast is None:
+        fast = eligible
+    elif fast and not eligible:
+        raise ValueError("the fast inner loop (K1) takes no constraints and "
+                         "needs the folded decoder")
     dev = dqs_norm.device
     B, T = dqs_norm.shape[0], dqs_norm.shape[1]
     limit = torch.full((B,), T, dtype=torch.int32, device=dev)
     if lengths is not None:
         limit = torch.minimum(lengths.to(torch.int32), limit)
-    ctx = fast_iter.make_context(model, skeleton, hyper)
-    kctx = iter_kernel.make_kernel_context(ctx)
+    if fast:
+        ctx = fast_iter.make_context(model, skeleton, hyper)
+        kctx = iter_kernel.make_kernel_context(ctx)
     L = states.latent.shape[-1]
     H = states.heights_buffer.shape[-1]
     P = states.latent_buffer.shape[1]
@@ -131,9 +128,25 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
 
     def targets_all(s: _FlatState, f_idx):
         f = f_idx.long()
-        return fast_iter.eval_targets_T(ctx, hyper, s.global_pos,
-                                        dqs_norm[ar, f], gt_pos[ar, f],
-                                        gt_rot[ar, f])
+        frame_inputs = (dqs_norm[ar, f], gt_pos[ar, f], gt_rot[ar, f])
+        if fast:    # planes (J, 3, B), (J, 3, 3, B)
+            return fast_iter.eval_targets_T(ctx, hyper, s.global_pos,
+                                            *frame_inputs)
+        return eng._eval_targets(model, skeleton, s, *frame_inputs)
+
+    def inner_loop(opt, lane_active, s: _FlatState, tpos, trot, tlat):
+        if fast:
+            return iter_kernel.run_block_fused(ctx, kctx, hyper, sync_k, opt,
+                                               lane_active, s, tpos, trot,
+                                               tlat)
+        for _ in range(sync_k):
+            active = eng._opt_cond(opt, hyper) & lane_active
+            if not bool(active.any()):
+                break
+            new = eng._opt_body(opt, model, statics, skeleton, hyper,
+                                s.global_pos, s.global_rot, tpos, trot, tlat)
+            opt = eng._select(active, new, opt)
+        return opt
 
     def finish(s: _FlatState, opt: eng._OptCarry, tbuf, adj):
         gp, gr, disp, heights, ci, _ = eng._advance_core(
@@ -148,10 +161,11 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
                                      dim=1),
             target_buffer=tbuf, current_index=ci)
 
-    def adj_targets(tposT):
+    def adj_targets(tpos):
         if hyper.joint_adjustment is None:
             return torch.zeros(B, 3, device=dev)
-        return tposT[hyper.joint_adjustment[1]].T
+        ee = hyper.joint_adjustment[1]
+        return tpos[ee].T if fast else tpos[:, ee]
 
     # prologue: every lane begins frame 0
     state = _flatten_state(states)
@@ -171,13 +185,11 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
     # global loop: K masked Adam steps, then a sync point
     while bool((frame < limit).any()):
         lane_active = frame < limit
-        opt = iter_kernel.run_block_fused(ctx, kctx, hyper, sync_k, opt,
-                                          lane_active, state, tpos, trot,
-                                          tlat)
+        opt = inner_loop(opt, lane_active, state, tpos, trot, tlat)
         done = ~eng._opt_cond(opt, hyper) & lane_active
 
         new_state = finish(state, opt, tbuf, adj_targets(tpos))
-        state = _select(done, new_state, state)
+        state = eng._select(done, new_state, state)
         f_cl = torch.clamp(frame, max=T - 1).long()
         _write_rows(outs["latent"], f_cl, done, opt.decoded_latent)
         _write_rows(outs["global_pos"], f_cl, done, new_state.global_pos)
@@ -190,19 +202,21 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
         f_next = torch.clamp(frame, max=T - 1)
         # advanced lanes begin their next frame; others keep their values
         tbuf_new, tlat_new = begin_all(state, done)
-        tbuf = _select(done, tbuf_new, tbuf)
-        tlat = _select(done, tlat_new, tlat)
+        tbuf = eng._select(done, tbuf_new, tbuf)
+        tlat = eng._select(done, tlat_new, tlat)
         tpos_new, trot_new = targets_all(state, f_next)
-        tpos = torch.where(done[None, None, :], tpos_new, tpos)
-        trot = torch.where(done[None, None, None, :], trot_new, trot)
-        opt = _select(done, eng._opt_init(state.latent, skeleton.n_joints),
-                      opt)
+        if fast:    # the lane axis is the last
+            tpos = torch.where(done[None, None, :], tpos_new, tpos)
+            trot = torch.where(done[None, None, None, :], trot_new, trot)
+        else:
+            tpos = eng._select(done, tpos_new, tpos)
+            trot = eng._select(done, trot_new, trot)
+        opt = eng._select(done, eng._opt_init(state.latent,
+                                              skeleton.n_joints), opt)
 
     # epilogue: one batched decode of the stored latents (plain matmuls)
     mean_q, std_q = eng._quat_stats(model)
-    pose_n, _ = vae.decode_folded_flat(model.decoder,
-                                       outs["latent"].reshape(B * T, L),
-                                       model.mean_dqs, model.std_dqs)
+    pose_n, _ = eng._decode(model, statics, outs["latent"].reshape(B * T, L))
     pose = pose_n.reshape(B, T, -1)
     root = (outs["global_rot"] - mean_q[:4]) / std_q[:4]
     pose = torch.cat((root, pose[..., 4:]), dim=-1)

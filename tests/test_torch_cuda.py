@@ -12,7 +12,9 @@ K1 (carry and aux, its TF32 control, lanes that take no step, no plain
 code), K2, K3a/K3b (rows) and K3c/K3d (lanes) with the forward's and the
 backward's TF32 controls, the backward's ReLU gates against the forward's
 and both kernels' tensor-core instructions, K4a/K4b, and one training step of each layout on the card
-against the CPU.
+against the CPU; and phase [15]'s anchor checks: ``engine.run`` on the
+card against the CPU (K2 alone) and ``run_batch`` against the pipelined
+path (K1 + K2).
 """
 
 import pytest
@@ -289,3 +291,21 @@ def test_k3_k4_reject_bad_input(engines):
     q = torch.zeros(3, 4, 12, 8, device="cuda")
     with pytest.raises(ValueError):
         attn_fused.attn_core_lanes(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("config", ["6_trackers", "4_trackers"])
+def test_anchor_card_matches_cpu(engines, config):
+    r = chip_smoke.anchor_card_vs_cpu(config, engines[2], T=20)
+    assert r["ok"], r
+
+
+def test_anchor_matches_pipelined_path(engines):
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    gpu, _, _, means, stds = engines
+    bvh = chip_smoke.load_clip(chip_smoke.T_MAIN, chip_smoke.SEED)
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    r = chip_smoke.anchor_vs_pipeline(
+        gpu, bvh, means, stds, Skeleton.build(parents, offsets, bvh.names))
+    assert r["ok"], r

@@ -35,7 +35,9 @@ def test_sources_found():
                    "ops/attn_fused.py", "train/temporal.py",
                    "cli/train_temporal.py", "data/datasets.py",
                    "train/vae.py", "cli/train_vae.py", "models/vae.py",
-                   "models/skeleton_nn.py", "export.py"):
+                   "models/skeleton_nn.py", "export.py",
+                   "drag/constraints.py", "drag/hypotheses.py",
+                   "drag/engine.py", "metrics.py"):
         assert ROOT / "dragposer_tpu_torch" / module in SOURCES
 
 

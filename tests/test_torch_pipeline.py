@@ -1,7 +1,7 @@
 """The port's whole slice against the JAX package: pipelined batched
-reconstruction (``drag/pipeline.run_batch_pipelined``) and its unported
-paths, on the CPU (plain twins of both kernels), on a seeded synthetic
-clip.
+reconstruction (``drag/pipeline.run_batch_pipelined``), with K1's inner
+loop and with the per-lane one (constraints, an unfolded decoder), on the
+CPU (plain twins of both kernels), on a seeded synthetic clip.
 
 Both runtimes start from the same ``DragState``, made by the JAX package
 and carried across, because the two RNGs differ.
@@ -103,16 +103,19 @@ def windowed_setup(tmp_path_factory):
                         True)
 
 
-def _run_both(setup, **hyper):
+def _run_both(setup, jax_fast=True, jax_hyper=None, **hyper):
+    """Both pipelines under ``hyper`` overrides (JAX's under
+    ``jax_hyper`` too, for constraint functions of its own)."""
     import jax
 
     je, te, states, tstates, dqs, gp, gr, lengths = setup
     jh, th = je.hyper, te.hyper
-    je.hyper, te.hyper = jh._replace(**hyper), th._replace(**hyper)
+    je.hyper = jh._replace(**{**hyper, **(jax_hyper or {})})
+    te.hyper = th._replace(**hyper)
     je._run_pipelined = {}        # its jitted runner closes over the hyper
     try:
         _, jo = je.run_batch_pipelined(states, dqs, gp, gr, sync_k=4,
-                                       lengths=lengths, fast=True)
+                                       lengths=lengths, fast=jax_fast)
         _, to = te.run_batch_pipelined(tstates, dqs, gp, gr, sync_k=4,
                                        lengths=lengths)
     finally:
@@ -121,11 +124,11 @@ def _run_both(setup, **hyper):
     return jax.tree.map(np.asarray, jo), to
 
 
-def _assert_lockstep(jo, to, lengths):
+def _assert_lockstep(jo, to, lengths, max_iter=KNIFE_FREE["max_iter"]):
     it = to.iterations.numpy()
     np.testing.assert_array_equal(it, jo.iterations)
     for i, n in enumerate(lengths):       # ragged lanes halt at their length
-        assert (it[i, :n] == KNIFE_FREE["max_iter"]).all()
+        assert (it[i, :n] == max_iter).all()
         assert (it[i, n:] == 0).all()
         np.testing.assert_array_equal(to.pose.numpy()[i, n:], 0.0)
     np.testing.assert_allclose(to.latent.numpy(), jo.latent, atol=1e-4)
@@ -207,21 +210,49 @@ def test_pipeline_stop_rule_statistics_match_jax(slice_setup):
     assert abs(lp_t - lp_j) <= 0.25 * lp_j, (lp_t, lp_j)
 
 
+def test_per_lane_loop_lockstep_matches_jax(slice_setup):
+    """With the reference's constraint bundle the pipeline's inner loop is
+    the anchor's per-lane step (JAX's ``fast=False``): knife-edge-free
+    lockstep at one Adam step a frame, K1 and its twin untouched."""
+    from dragposer_tpu.drag import constraints as jcons
+    from dragposer_tpu_torch.drag import constraints as tcons
+    from dragposer_tpu_torch.drag import fast_iter
+
+    before = (fast_iter.COUNTS.plain, fast_iter.COUNTS.kernel)
+    jo, to = _run_both(slice_setup, jax_fast=False,
+                       jax_hyper=dict(constraints=jcons.REFERENCE_BUNDLE),
+                       **dict(KNIFE_FREE, max_iter=1,
+                              constraints=tcons.REFERENCE_BUNDLE))
+    assert (fast_iter.COUNTS.plain, fast_iter.COUNTS.kernel) == before
+    _assert_lockstep(jo, to, LENGTHS, max_iter=1)
+
+
 def test_unported_paths_raise(slice_setup):
+    """The constraint and unfolded-decoder cases run the per-lane inner
+    loop with K1 untouched (and refuse ``fast=True``); the default device
+    raises without a GPU."""
     from dragposer_tpu_torch._device import resolve_device
-    from dragposer_tpu_torch.drag import pipeline
+    from dragposer_tpu_torch.drag import fast_iter, pipeline
+    from dragposer_tpu_torch.models import loading
 
     _, te, _, tstates, dqs, gp, gr, _ = slice_setup
-    hyper = te.hyper._replace(constraints=((lambda ctx: 0.0, 1.0),))
-    with pytest.raises(NotImplementedError):
-        pipeline.run_batch_pipelined(
-            te.model, te.statics, te.skeleton, hyper, te.tparam, tstates,
-            torch.as_tensor(dqs), torch.as_tensor(gp), torch.as_tensor(gr))
-    model = te.model._replace(decoder={"convs": []})
-    with pytest.raises(NotImplementedError):
-        pipeline.run_batch_pipelined(
-            model, te.statics, te.skeleton, te.hyper, te.tparam, tstates,
-            torch.as_tensor(dqs), torch.as_tensor(gp), torch.as_tensor(gr))
+    args = [torch.as_tensor(a[:, :2]) for a in (dqs, gp, gr)]
+    params, _, _ = loading.load_generator(MODEL_DIR)
+    unfolded = te.model._replace(
+        decoder=loading.tree_to_torch(params["decoder"], "cpu"))
+    hyper = te.hyper._replace(max_iter=3)
+    for model, h in ((te.model, hyper._replace(
+            constraints=((lambda ctx: ctx.latent.pow(2).sum(-1), 0.1),))),
+            (unfolded, hyper)):
+        before = (fast_iter.COUNTS.plain, fast_iter.COUNTS.kernel)
+        _, out = pipeline.run_batch_pipelined(
+            model, te.statics, te.skeleton, h, te.tparam, tstates, *args)
+        assert (fast_iter.COUNTS.plain, fast_iter.COUNTS.kernel) == before
+        assert torch.isfinite(out.pose).all() and out.iterations.min() >= 1
+        with pytest.raises(ValueError, match="fast inner loop"):
+            pipeline.run_batch_pipelined(
+                model, te.statics, te.skeleton, h, te.tparam, tstates,
+                *args, fast=True)
     # the default device is CUDA; without a GPU it raises, never falls back
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
