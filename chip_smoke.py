@@ -17,9 +17,12 @@ printing its own line (any failure exits nonzero):
    time and CUDA events around a call beside it, and its timed build's
    clock cycles by phase;
 4. K2 (temporal-transformer forward, 3xTF32 on the tensor cores) against
-   its float32 plain twin, with a control that must fail the same
-   tolerance (the twin with TF32 matmuls), and ``torch.nn.Transformer``
-   timed beside it as a yardstick only, with TF32 off and on;
+   its float32 plain twin at S_dec = 5, 1 (the main path, timed beside
+   ``PERF.md``'s figure), 16 (a rollout at the realtime window 60) and 30
+   (the longest the positional encoding allows: its build for 32 steps),
+   with a control that must fail the same tolerance (the twin with TF32
+   matmuls), and ``torch.nn.Transformer`` timed beside it as a yardstick
+   only, with TF32 off and on;
 5. the serving path: ``build_engine`` on ``models/model_dancedb_example``
    with the 6-tracker config, then ``DragEngine.run_batch_pipelined`` on
    B = 8192 lanes × 240 frames of synthetic motion (mean iterations, lane
@@ -81,9 +84,22 @@ printing its own line (any failure exits nonzero):
     3-tracker beam, ``--batch`` with constraints: finite MPJPE and jitter,
     launches per run); the anchor's frames/s and device idle share, not
     gated;
-16. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
-    summed over [5] and [15]); the last line is the ``ok`` JSON.  SM and
-    memory clocks are sampled beside every timed phase.
+16. a ``RealtimeSession`` (6 trackers) on the card: one frame at one
+    Adam step against the CPU from the same state, then 120 frames at the
+    realtime defaults (max_iter 10, window 60: K2 at S_dec 16) with frame
+    latency p50/p99 (K2 launched, its twin and K1 never);
+17. a ``RealtimeBatch`` of 64 avatars at 6/4/3 trackers: one frame on the
+    card (K1 + K2) against the CPU's twins under K1's gate, then 120
+    frames with the window phases in lockstep and staggered, latency
+    p50/p99 each;
+18. the serving daemon on the card, a process of its own: four raw-socket
+    clients step 60 frames each (coalesced: ``OP_STATS``), one
+    ``OP_EVAL_BATCH`` while a client keeps stepping, and the native smoke
+    client (``native/``, built with ``g++``) through
+    ``DRAGPOSER_NO_SPAWN``;
+19. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
+    summed over [5], [15] and [16]-[18]); the last line is the ``ok``
+    JSON.  SM and memory clocks are sampled beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
 CPU tests; importing this module has no side effects.
@@ -199,6 +215,23 @@ def write_synthetic_clips(directory: str, n_frames, seed: int):
         synthetic_bvh(int(n), seed + i).save(path)
         paths.append(path)
     return paths
+
+
+def clip_trackers(bvh):
+    """World positions (T, J, 3) and wxyz rotations (T, J, 4) of every joint
+    of a clip: what a tracker on each joint reads.  A realtime frame's
+    targets are a mask's rows, positions less the session's root."""
+    import torch
+
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops import fk
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    rots, pos, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    skeleton = Skeleton.build(parents, offsets, bvh.names)
+    p, q = fk.fk_local(torch.as_tensor(rots), torch.as_tensor(pos[:, 0]),
+                       skeleton)
+    return p.numpy(), q.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -1035,6 +1068,41 @@ def sass_mma_count(name: str, function: str = None) -> int:
     return len(re.findall(r"\bHG?MMA\b", sass))
 
 
+def sass_functions(library: str) -> dict:
+    """The SASS of every kernel in a built library (``cuobjdump -sass``):
+    {mangled name: [instruction text]}, addresses and encodings left
+    out."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    parts = re.split(r"^\s*Function\s*:\s*(\S+)", sass, flags=re.M)
+    return {fn: [m.group(1).strip() for m in
+                 re.finditer(r"/\*[0-9a-f]+\*/\s*([^;]*);", body)]
+            for fn, body in zip(parts[1::2], parts[2::2])}
+
+
+def k2_short_build_matches(parent_library: str) -> dict:
+    """This checkout's K2 build for 16 steps against another checkout's
+    built ``temporal_forward`` library (one kernel, 16 steps): their SASS
+    instruction by instruction, and the 32-step build's length."""
+    from dragposer_tpu_torch import _build
+
+    mine = sass_functions(str(_build.library_path("temporal_forward")))
+    theirs = sass_functions(parent_library)
+
+    def kernel(fns, tag):
+        return next(v for k, v in fns.items()
+                    if "temporal_forward_kernel" + tag in k)
+
+    old, short, long_ = (kernel(theirs, ""), kernel(mine, "ILi16"),
+                         kernel(mine, "ILi32"))
+    return {"parent_instructions": len(old),
+            "short_build_instructions": len(short),
+            "differing": sum(a != b for a, b in zip(old, short))
+            + abs(len(old) - len(short)),
+            "long_build_instructions": len(long_)}
+
+
 def device_ms(fn, calls: int = 20) -> float:
     """Device time of one call of ``fn``: the self time of every kernel it
     launches, summed, from ``torch.profiler`` over ``calls`` calls (host
@@ -1080,7 +1148,15 @@ MAIN_MEAN_ITERATIONS = 9.689
 # products in 3xTF32 moves lane 0 by 1.1e-4 m, the mean of 64 by 7e-6,
 # ``k1_mpjpe_sensitivity``), the mean of many does not
 MAIN_MPJPE_LANES = 64
+# K2's time at B = 8192, S_dec = 1 as PERF.md §6 records it before the
+# realtime slice, printed beside this run's
+K2_PERF_MD_MS = 3.56
 MAIN_MEAN_MPJPE_M = 0.02056798
+
+
+def clip_path(seed: int) -> str:
+    """Where :func:`load_clip` writes the clip of ``seed``."""
+    return os.path.join(WORK_DIR, f"clip_{seed}.bvh")
 
 
 def load_clip(n_frames: int, seed: int):
@@ -1089,7 +1165,7 @@ def load_clip(n_frames: int, seed: int):
     from dragposer_tpu_torch.io.bvh import BVH
 
     os.makedirs(WORK_DIR, exist_ok=True)
-    path = os.path.join(WORK_DIR, f"clip_{seed}.bvh")
+    path = clip_path(seed)
     synthetic_bvh(n_frames, seed).save(path)
     return BVH().load(path)
 
@@ -1550,6 +1626,37 @@ def k1_figures(B: int = B_MAIN) -> dict:
     res["tile_efficiency"] = tile_efficiency(steps, 16)
     res["main_path"] = main_path_results(engine, bvh, means, stds, skeleton,
                                          B)
+    res["clocks"].append(gpu_clocks())
+    return res
+
+
+def k2_figures(B: int = B_MAIN, calls: int = 20) -> dict:
+    """K2's numbers for a parent/change comparison, from whatever
+    ``dragposer_tpu_torch`` is first on the path: the card, and at the
+    main path's shapes (S_enc 14, S_dec 1 and 5, B random lanes) its own
+    device time a call (:func:`device_ms`) and CUDA events around a call
+    (:func:`cuda_ms`)."""
+    import torch
+
+    from dragposer_tpu_torch import config as cfg
+    from dragposer_tpu_torch.models import loading
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    packed = temporal_fused.pack_params(loading.load_temporal(MODEL_DIR)[0],
+                                        cfg.TEMPORAL_PARAM, "cuda")
+    res = {"clocks": [gpu_clocks()]}
+    for s_dec in (1, 5):
+        g = torch.Generator().manual_seed(s_dec)
+        enc = torch.randn((B, 14, 33), generator=g).cuda()
+        dec = torch.randn((B, s_dec, 24), generator=g).cuda()
+        mask = torch.zeros((1, s_dec), device="cuda")
+
+        def run():
+            return temporal_fused.forward(packed, cfg.TEMPORAL_PARAM, enc,
+                                          dec, mask)
+
+        res[f"S_dec {s_dec}"] = {"device_ms": device_ms(run, calls),
+                                 "event_ms": cuda_ms(run, calls)}
     res["clocks"].append(gpu_clocks())
     return res
 
@@ -2415,13 +2522,11 @@ CLI_BEAM = ("8", "1", "16", "32")
 
 
 def kernel_counts() -> dict:
-    """K1's and K2's launch counts and their plain twins' calls."""
-    from dragposer_tpu_torch.drag import fast_iter
-    from dragposer_tpu_torch.ops import temporal_fused
+    """K1's and K2's launch counts and their plain twins' calls (what the
+    daemon's ``OP_STATS`` reports as "kernels")."""
+    from dragposer_tpu_torch import _build
 
-    return {"K1": fast_iter.COUNTS.kernel, "K2": temporal_fused.COUNTS.kernel,
-            "K1_plain": fast_iter.COUNTS.plain,
-            "K2_plain": temporal_fused.COUNTS.plain}
+    return _build.kernel_launches()
 
 
 def reset_kernel_counts() -> None:
@@ -2652,6 +2757,529 @@ def anchor_timing(engine, bvh, means, stds, T: int = 24, B: int = 64,
 
 
 
+# ---------------------------------------------------------------------------
+# The realtime front: sessions, the multi-avatar batch and the daemon (the
+# daemon's helpers are shared with tests/test_torch_server.py on the CPU)
+# ---------------------------------------------------------------------------
+
+T_REALTIME = 120        # frames of each timed realtime run (2 windows of 60)
+N_CROWD = 64            # avatars of the RealtimeBatch runs
+CROWD_CONFIGS = ("6_trackers", "4_trackers", "3_trackers")
+ONE_STEP = (0.0, 0.0, 1, 0.01)   # set_optim_params: one Adam step a frame
+N_DAEMON_CLIENTS = 4
+T_DAEMON = 60           # frames each daemon client steps
+DAEMON_EVAL_CLIPS = (240, 200)
+DAEMON_WORK_DIR = os.path.join(WORK_DIR, "daemon")
+
+
+def configure_session(session, skeleton_path: str, config: str = "6_trackers",
+                      optim=None, lambdas=None, model_dir: str = MODEL_DIR):
+    """The reference client's set-up of a ``RealtimeSession``: skeleton,
+    models, ``config``'s mask and weights and, where given, optimizer
+    parameters and lambdas (else the realtime defaults: max_iter 10,
+    window 60)."""
+    from dragposer_tpu_torch import config as cfg
+
+    c = cfg.BUILTIN_CONFIGS[config]
+    session.set_reference_skeleton(skeleton_path)
+    session.load_models(model_dir)
+    session.set_mask_and_weights(c.mask_array(), c.weights_array())
+    if optim is not None:
+        session.set_optim_params(*optim)
+    if lambdas is not None:
+        session.set_lambdas(*lambdas)
+    return session
+
+
+def session_frame(session, wp, wq, f: int, root):
+    """Frame ``f`` of a clip's trackers (``clip_trackers``) through
+    ``session.drag_pose``, positions relative to ``root`` (3,), the root
+    the client last read; returns (local (J, 4), global_pos (3,))."""
+    j = session.skeleton.n_joints
+    idx = session._mask_indices
+    pose = np.zeros((j, 4), np.float32)
+    gp = np.zeros((1, 3), np.float32)
+    session.drag_pose(wp[f, idx] - root, wq[f, idx], pose, gp)
+    return pose, gp[0]
+
+
+def crowd_targets(wp, wq, frames, roots):
+    """Dense targets of a crowd: avatar i reads frame ``frames[i]``,
+    relative to its root ``roots[i]``."""
+    return wp[frames] - roots[:, None], wq[frames]
+
+
+def latency_ms(seconds) -> dict:
+    """Frame latency: the median, p90 (the highest percentile with ten
+    samples beyond it at 120 frames) and p99, the worst and the mean."""
+    ms = np.asarray(seconds) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p90_ms": float(np.percentile(ms, 90)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max()), "mean_ms": float(ms.mean()),
+            "frames": int(ms.size)}
+
+
+def realtime_session_phase(skeleton_path: str, bvh,
+                           frames: int = T_REALTIME) -> dict:
+    """``RealtimeSession`` on the card: one frame at one Adam step against
+    the same frame on the CPU from the same carried state (the lockstep
+    gate of :func:`one_step_lockstep`: latent 1e-4, root 1e-5; the
+    parent-local quaternions 1e-4), at the realtime default window 60, so
+    its rollout is K2 at S_dec = 16; then ``frames`` frames at the
+    realtime defaults (max_iter 10, window 60) timed frame by frame, launch
+    counts set to 0 just before and read just after: K2 launched, its twin
+    and K1 never."""
+    import torch
+
+    from dragposer_tpu_torch.runtime.realtime import RealtimeSession
+
+    wp, wq = clip_trackers(bvh)
+    root0 = wp[0, 0]
+    card = configure_session(RealtimeSession(log_path=None), skeleton_path,
+                             optim=ONE_STEP)
+    cpu = configure_session(RealtimeSession(log_path=None, device="cpu"),
+                            skeleton_path, optim=ONE_STEP)
+    for s in (cpu, card):
+        s.init_drag_pose(root0[None], wq[0, 0][None])
+    card._state = card._engine.on_device(cpu._state)
+    (gl, gg), (cl, cg) = [session_frame(s, wp, wq, 0, root0)
+                          for s in (card, cpu)]
+    res = {"one_step": {
+        "latent_err": float((card._state.latent.cpu()
+                             - cpu._state.latent).abs().max()),
+        "root_err": float(np.abs(gg - cg).max()),
+        "local_quat_err": float(np.abs(gl - cl).max())}}
+    one = res["one_step"]
+    one["ok"] = (one["latent_err"] <= 1e-4 and one["root_err"] <= 1e-5
+                 and one["local_quat_err"] <= 1e-4)
+
+    card.set_optim_params(1e-4, 0.01, 10, 0.01)   # the realtime defaults
+    card._ensure_engine()        # the rebuild and its prewarm frame, untimed
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    seconds, root, finite = [], gg, True
+    for f in range(1, frames + 1):
+        t0 = time.perf_counter()
+        local, root = session_frame(card, wp, wq, f, root)
+        seconds.append(time.perf_counter() - t0)
+        finite = finite and bool(np.isfinite(local).all()
+                                 and np.isfinite(root).all())
+    counts = kernel_counts()
+    res.update(latency_ms(seconds), launches=counts,
+               window=card.temporal_future_window, max_iter=card.max_iter,
+               k2_s_dec=card.temporal_future_window // 4 + 1,
+               unit_quats=bool(np.allclose(np.linalg.norm(local, axis=-1),
+                                           1.0, atol=1e-4)))
+    res["ok"] = (one["ok"] and finite and res["unit_quats"]
+                 and counts["K2"] > 0 and counts["K2_plain"] == 0
+                 and counts["K1"] == 0 and counts["K1_plain"] == 0)
+    return res
+
+
+def _crowd(session, n: int, wp, frames: int):
+    """``session.make_batch(n)`` with the avatars' configs cycling through
+    ``CROWD_CONFIGS`` and avatar i starting at frame 2i of the clip (modulo
+    what leaves ``frames`` frames after the start)."""
+    from dragposer_tpu_torch import config as cfg
+
+    batch = session.make_batch(n)
+    for i in range(n):
+        c = cfg.BUILTIN_CONFIGS[CROWD_CONFIGS[i % len(CROWD_CONFIGS)]]
+        batch.set_mask_and_weights(i, c.mask_array(), c.weights_array())
+    starts = (2 * np.arange(n)) % (wp.shape[0] - frames - 1)
+    return batch, starts
+
+
+def crowd_agreement(g, c, max_iter: int) -> dict:
+    """One batched frame on the card against the CPU under K1's gate
+    (``k1_agreement``): lanes whose iteration counts differ (a stop-rule
+    knife edge) are counted and left out; on the others the new latent,
+    the decoded latent, both losses, the root and the parent-local
+    quaternions within ``K1_TOL`` (atol ``atol_per_step`` × max_iter, rtol
+    on the CPU's value); at most B // 1000 lanes of either kind.  ``g``
+    and ``c`` are ``realtime.make_batched_frame``'s results (state,
+    ``FrameOutput``, local quaternions) on the card and on the CPU."""
+    (gs, go, gl), (cs, co, cl) = g, c
+    gg, cg = go.global_pos, co.global_pos
+    B = gl.shape[0]
+    same_t = go.iterations.cpu() == co.iterations
+    atol = K1_TOL["atol_per_step"] * max_iter
+    over = np.zeros(B, bool)
+    worst = 0.0
+    for a, b in ((gs.latent, cs.latent), (go.latent, co.latent),
+                 (go.loss_pos, co.loss_pos), (go.loss_rot, co.loss_rot),
+                 (gg, cg), (gl, cl)):
+        a, b = a.cpu().numpy().reshape(B, -1), b.numpy().reshape(B, -1)
+        err = np.abs(a - b)
+        over |= (err > atol + K1_TOL["rtol"] * np.abs(b)).any(axis=1)
+        worst = max(worst, float(err[same_t.numpy()].max(initial=0.0)))
+    mismatch = int((~same_t).sum())
+    n_over = int((over & same_t.numpy()).sum())
+    return {"tolerance": f"K1_TOL: atol {atol:g} (atol_per_step x max_iter "
+                         f"{max_iter}) + rtol {K1_TOL['rtol']:g}; lanes "
+                         f"with unequal iteration counts left out; at most "
+                         f"B // 1000 = {B // 1000} lanes of either kind",
+            "max_abs_err": worst, "t_mismatch": mismatch,
+            "lanes_over_tol": n_over,
+            "mean_iterations": float(co.iterations.float().mean()),
+            "ok": mismatch <= B // 1000 and n_over <= B // 1000}
+
+
+def realtime_batch_phase(skeleton_path: str, bvh, n: int = N_CROWD,
+                         frames: int = T_REALTIME) -> dict:
+    """``RealtimeBatch`` of ``n`` avatars (6/4/3 trackers in turn) at the
+    realtime defaults: one frame on the card (K1 + K2) against the CPU's
+    twins from the same state (:func:`crowd_agreement`), launch counts of
+    the card's frame; then ``frames`` frames timed frame by frame with
+    the window phases in lockstep and staggered (``stagger_phases``),
+    counts set to 0 just before each run and read just after."""
+    import torch
+
+    from dragposer_tpu_torch.drag import engine as eng
+    from dragposer_tpu_torch.runtime.realtime import (RealtimeSession,
+                                                      make_batched_frame)
+
+    wp, wq = clip_trackers(bvh)
+    card_s = configure_session(RealtimeSession(log_path=None), skeleton_path)
+    cpu_s = configure_session(RealtimeSession(log_path=None, device="cpu"),
+                              skeleton_path)
+    (card, starts), (cpu, _) = (_crowd(card_s, n, wp, frames),
+                                _crowd(cpu_s, n, wp, frames))
+    gp0, gr0 = wp[starts, 0], wq[starts, 0]
+    cpu.init_drag_pose(gp0, gr0)
+    card._state = card._engine.on_device(cpu._state)
+    tpos, trot = crowd_targets(wp, wq, starts + 1, gp0)
+    card_frame, cpu_frame = (make_batched_frame(card._engine),
+                             make_batched_frame(cpu._engine))
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    g = card_frame(card._model_b(), card._state, card._engine.tensor(tpos),
+                   card._engine.tensor(trot))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    c = cpu_frame(cpu._model_b(), cpu._state, torch.as_tensor(tpos),
+                  torch.as_tensor(trot))
+    res = {"n": n, "configs": CROWD_CONFIGS,
+           "one_frame": crowd_agreement(g, c, card._engine.hyper.max_iter)}
+    res["one_frame"]["launches"] = counts
+    ok = (res["one_frame"]["ok"] and counts["K1"] == 1 and counts["K2"] > 0
+          and counts["K1_plain"] == 0 and counts["K2_plain"] == 0)
+    res["launches"] = {}
+    for stagger in (False, True):
+        card.init_drag_pose(gp0, gr0, stagger_phases=stagger)
+        roots = gp0.copy()
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        seconds = []
+        with k2_lanes_recorded() as lanes:
+            for f in range(1, frames + 1):
+                tpos, trot = crowd_targets(wp, wq, starts + f, roots)
+                t0 = time.perf_counter()
+                local, roots = card.drag_pose(tpos, trot)
+                seconds.append(time.perf_counter() - t0)
+        counts = kernel_counts()
+        key = "staggered" if stagger else "lockstep"
+        run = res[key] = {**latency_ms(seconds), "launches": counts,
+                          "k2_lanes_per_launch": sorted(set(lanes))}
+        res["launches"][key] = counts
+        run["finite"] = bool(np.isfinite(local).all()
+                             and np.isfinite(roots).all())
+        ok = (ok and run["finite"] and counts["K1"] == frames
+              and counts["K2"] > 0 and counts["K1_plain"] == 0
+              and counts["K2_plain"] == 0)
+    budget = eng.rollout_lane_budget(n, card._engine.hyper
+                                     .temporal_future_window)
+    res["rollout_lane_budget"] = budget
+    # staggered phases must keep every rollout inside the sub-batch budget
+    res["ok"] = ok and max(res["staggered"]["k2_lanes_per_launch"],
+                           default=0) <= budget
+    return res
+
+
+def start_daemon(socket_path: str, device: str = "cuda",
+                 cwd: str = DAEMON_WORK_DIR, coalesce_window=None,
+                 env=None) -> subprocess.Popen:
+    """Start ``python -m dragposer_tpu_torch.runtime.server`` on ``device``
+    from this checkout and wait for its ready byte (``--ready-fd``): it
+    has loaded its kernels and listens.  Its output goes to
+    ``cwd/daemon.log``.  Stop it with :func:`stop_daemon`."""
+    os.makedirs(cwd, exist_ok=True)
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "dragposer_tpu_torch.runtime.server",
+           "--socket", socket_path, "--device", device]
+    if coalesce_window is not None:
+        cmd += ["--coalesce-window", str(coalesce_window)]
+    r, w = os.pipe()
+    with open(os.path.join(cwd, "daemon.log"), "w") as log:
+        proc = subprocess.Popen(cmd + ["--ready-fd", str(w)], env=env,
+                                cwd=cwd, pass_fds=(w,), stdout=log,
+                                stderr=subprocess.STDOUT)
+    os.close(w)
+    try:
+        ready = os.read(r, 1)
+    finally:
+        os.close(r)
+    if not ready:
+        proc.wait(timeout=60)
+        with open(os.path.join(cwd, "daemon.log")) as f:
+            raise RuntimeError(f"the daemon exited ({proc.returncode}) "
+                               f"before listening: {f.read()[-2000:]}")
+    return proc
+
+
+def stop_daemon(proc: subprocess.Popen) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+class DaemonSession:
+    """One realtime session over its own connection to the daemon: the
+    session opcodes (setup, drag, stats) on ``runtime.client.DaemonClient``'s
+    framing."""
+
+    def __init__(self, socket_path: str, timeout: float = 600.0):
+        from dragposer_tpu_torch.runtime.client import DaemonClient
+
+        self.client = DaemonClient(socket_path, timeout=timeout)
+        self.handle = None
+        self.mask_indices = None
+
+    def call(self, op: int, payload: bytes = b"") -> tuple:
+        """(status, body) of one request."""
+        return self.client.request(op, payload)
+
+    def ok(self, op: int, payload: bytes = b"") -> bytes:
+        """The body of one request; an error reply raises ``DaemonError``."""
+        return self.client._call(op, payload)
+
+    def setup(self, skeleton_path: str, root, rot, config="6_trackers",
+              optim=(1e-4, 0.01, 10, 0.01), lambdas=(1.0, 0.02, 60),
+              model_dir: str = MODEL_DIR):
+        """The reference DLL sequence: init, skeleton, models, mask and
+        weights, the initial pose, optimizer parameters and lambdas."""
+        import struct
+
+        from dragposer_tpu_torch import config as cfg
+        from dragposer_tpu_torch.runtime import server as proto
+
+        (self.handle,) = struct.unpack("<q", self.ok(proto.OP_INIT))
+        h = struct.pack("<q", self.handle)
+        (j,) = struct.unpack("<i", self.ok(proto.OP_SET_REF_SKELETON,
+                                           h + skeleton_path.encode()))
+        self.ok(proto.OP_LOAD_MODELS, h + model_dir.encode())
+        c = cfg.BUILTIN_CONFIGS[config]
+        mask, weights = c.mask_array(), c.weights_array()
+        self.mask_indices = np.nonzero(mask)[0]
+        (e,) = struct.unpack("<i", self.ok(
+            proto.OP_SET_MASK_WEIGHTS, h + struct.pack("<i", j)
+            + mask.astype("<f4").tobytes() + weights.astype("<f4").tobytes()))
+        if e != len(self.mask_indices):
+            raise RuntimeError(f"the daemon counts {e} end effectors")
+        self.ok(proto.OP_SET_OPTIM_PARAMS, h + struct.pack("<ffif", *optim))
+        self.ok(proto.OP_SET_LAMBDAS, h + struct.pack("<ffi", *lambdas))
+        self.ok(proto.OP_INIT_DRAG_MODEL,
+                h + struct.pack("<7f", *root, *rot))
+        self.n_joints = j
+        return self
+
+    def drag(self, tpos, trot):
+        """One frame from sparse targets (E, 3) and (E, 4 wxyz): (local
+        (J, 4), global_pos (3,))."""
+        import struct
+
+        from dragposer_tpu_torch.runtime import server as proto
+
+        e = len(tpos)
+        body = (struct.pack("<qi", self.handle, e)
+                + np.asarray(tpos, "<f4").tobytes()
+                + np.asarray(trot, "<f4").tobytes())
+        out = np.frombuffer(self.ok(proto.OP_DRAG_POSE, body), "<f4")
+        j = self.n_joints
+        return out[: 4 * j].reshape(j, 4), out[4 * j:]
+
+    def frame(self, wp, wq, f: int, root):
+        idx = self.mask_indices
+        return self.drag(wp[f, idx] - root, wq[f, idx])
+
+    def stats(self) -> dict:
+        return self.client.stats()
+
+    def close(self) -> None:
+        self.client.close()
+
+
+def build_native_smoke(out_dir: str) -> str:
+    """``native/dragposer_client.cpp`` + ``native/smoke_main.cpp`` built
+    with ``g++`` into ``out_dir/dragposer_smoke_client`` (the socket client
+    library and the reference DLL's call sequence, no interpreter)."""
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "dragposer_smoke_client")
+    native = os.path.join(HERE, "native")
+    subprocess.run(["g++", "-std=c++17", "-O2", "-pthread",
+                    "-I" + native, "-o", out,
+                    os.path.join(native, "dragposer_client.cpp"),
+                    os.path.join(native, "smoke_main.cpp")],
+                   check=True, capture_output=True, text=True, timeout=300)
+    return out
+
+
+def run_native_smoke(binary: str, socket_path: str, skeleton_path: str,
+                     cycles: int = 2, cwd: str = DAEMON_WORK_DIR,
+                     model_dir: str = MODEL_DIR):
+    """The native smoke lifecycle against a running daemon
+    (``DRAGPOSER_NO_SPAWN``: never its own); returns the finished
+    process."""
+    env = dict(os.environ, DRAGPOSER_SOCKET=socket_path,
+               DRAGPOSER_NO_SPAWN="1")
+    return subprocess.run([binary, model_dir, skeleton_path, str(cycles)],
+                          capture_output=True, text=True, env=env, cwd=cwd,
+                          timeout=600)
+
+
+def daemon_phase(skeleton_path: str, bvh, device: str = "cuda",
+                 frames: int = T_DAEMON) -> dict:
+    """The serving daemon on the card, as a process of its own: four
+    raw-socket clients (6 trackers, the realtime defaults) step ``frames``
+    frames each from their own threads, coalesced by the
+    daemon (``OP_STATS``: coalesced frames, ticks, and the daemon's launch
+    counts as the difference of two reads around the run); one
+    ``OP_EVAL_BATCH`` on two synthetic clips while client 0 keeps stepping
+    (at least 3 frames during the job); the native smoke client
+    (``build_native_smoke``) through ``DRAGPOSER_NO_SPAWN``."""
+    import threading
+
+    from dragposer_tpu_torch.runtime.client import DaemonClient
+
+    shutil.rmtree(DAEMON_WORK_DIR, ignore_errors=True)
+    os.makedirs(DAEMON_WORK_DIR)
+    sock = os.path.join(DAEMON_WORK_DIR, "dragposer.sock")
+    wp, wq = clip_trackers(bvh)
+    t0 = time.time()
+    proc = start_daemon(sock, device)
+    res = {"start_s": time.time() - t0}
+    clients = []
+    try:
+        starts = 3 * np.arange(N_DAEMON_CLIENTS)
+        roots = [wp[s, 0] for s in starts]
+        t0 = time.time()
+        clients = [DaemonSession(sock).setup(skeleton_path, wp[s, 0],
+                                             wq[s, 0]) for s in starts]
+        res["setup_s"] = time.time() - t0
+        before = clients[0].stats()
+        seconds = [[] for _ in clients]
+        errors = []
+        barrier = threading.Barrier(len(clients))
+
+        def run(i):
+            try:
+                barrier.wait(timeout=120)
+                for f in range(1, frames + 1):
+                    t = time.perf_counter()
+                    local, roots[i] = clients[i].frame(wp, wq, starts[i] + f,
+                                                       roots[i])
+                    seconds[i].append(time.perf_counter() - t)
+                    if not np.allclose(np.linalg.norm(local, axis=-1), 1.0,
+                                       atol=1e-3):
+                        raise ValueError(f"client {i} frame {f}: not unit "
+                                         "quaternions")
+            except Exception as e:  # reported below, fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(clients))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        after = clients[0].stats()
+        delta = {k: after[k] - before[k]
+                 for k in ("frames", "ticks", "coalesced_frames")}
+        launches = {k: after["kernels"][k] - before["kernels"][k]
+                    for k in after["kernels"]}
+        res["clients"] = {**latency_ms(np.concatenate(seconds)),
+                          **delta, "max_group": after["max_group"],
+                          "launches": launches, "errors": errors}
+        ok = (not errors and delta["frames"] == len(clients) * frames
+              and delta["coalesced_frames"] > 0 and launches["K1"] > 0
+              and launches["K2"] > 0 and launches["K1_plain"] == 0
+              and launches["K2_plain"] == 0)
+
+        clip_dir = os.path.join(DAEMON_WORK_DIR, "clips")
+        os.makedirs(clip_dir)
+        files = write_synthetic_clips(clip_dir, DAEMON_EVAL_CLIPS, SEED + 7)
+        job = {}
+
+        def eval_job():
+            try:
+                with DaemonClient(sock, timeout=600) as c:
+                    job["out"] = c.eval_batch(MODEL_DIR, skeleton_path, files,
+                                              save_dir=DAEMON_WORK_DIR)
+            except Exception as e:  # reported below, fails the phase
+                job["error"] = repr(e)
+
+        before = clients[0].stats()
+        thread = threading.Thread(target=eval_job)
+        thread.start()
+        during, f, root = 0, starts[0] + frames, roots[0]
+        while thread.is_alive():
+            f = f + 1 if f + 1 < wp.shape[0] else 1
+            _, root = clients[0].frame(wp, wq, f, root)
+            during += thread.is_alive()
+        thread.join()
+        after = clients[0].stats()
+        out = job.get("out", {})
+        mpjpe = [r["mpjpe"] for r in out.get("results", [])]
+        res["eval_job"] = {
+            "files": len(files), "frames": list(DAEMON_EVAL_CLIPS),
+            "elapsed_s": out.get("elapsed_s"), "mpjpe_m": mpjpe,
+            "frames_stepped_during_job": during, "error": job.get("error"),
+            "launches": {k: after["kernels"][k] - before["kernels"][k]
+                         for k in after["kernels"]}}
+        ok = (ok and len(mpjpe) == len(files)
+              and bool(np.all(np.isfinite(mpjpe))) and during >= 3
+              and res["eval_job"]["launches"]["K1"] > 0)
+
+        before = clients[0].stats()
+        smoke = run_native_smoke(build_native_smoke(os.path.join(
+            HERE, "build")), sock, skeleton_path)
+        after = clients[0].stats()
+        res["native_smoke"] = {
+            "returncode": smoke.returncode,
+            "said": [ln for ln in smoke.stdout.splitlines()
+                     if "smoke OK" in ln or "end effectors" in ln],
+            "stderr_tail": smoke.stderr[-300:] if smoke.returncode else "",
+            "launches": {k: after["kernels"][k] - before["kernels"][k]
+                         for k in after["kernels"]}}
+        ok = (ok and smoke.returncode == 0 and "smoke OK" in smoke.stdout
+              and smoke.stdout.count("end effectors: 6") == 2)
+        res["launches"] = {k: (res["clients"]["launches"][k]
+                               + res["eval_job"]["launches"][k]
+                               + res["native_smoke"]["launches"][k])
+                           for k in launches}
+    finally:
+        for c in clients:
+            c.close()
+        stop_daemon(proc)
+    res["ok"] = ok
+    return res
+
+
+def realtime_launches(name: str, session: dict, crowd: dict,
+                      daemon: dict) -> dict:
+    """Kernel ``name``'s launches on each realtime path ([16]-[18])."""
+    return {"realtime session [16]": session["launches"][name],
+            "RealtimeBatch [17]": (crowd["one_frame"]["launches"][name]
+                                   + sum(c[name] for c in
+                                         crowd["launches"].values())),
+            "daemon [18]": daemon["launches"][name]}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
@@ -2733,14 +3361,21 @@ def main() -> int:
     print(f"[3] K1 B={B_MAIN} sync_k={SYNC_K}, its timed build (SM clock "
           "cycles per warp-step by phase): " + json.dumps(phases), flush=True)
 
-    k2_main = None
-    for s_dec, kind in ((5, "row"), (5, "square"), (1, "row")):
+    k2_main, k2_long = None, {}
+    # the main path's shape (S_dec = 1), the windowed configs' (5), and the
+    # realtime rollouts' at window 60 (16) and at the longest window the
+    # positional encoding allows, 119 (30: the build for 32 steps)
+    for s_dec, kind in ((5, "row"), (5, "square"), (1, "row"), (16, "row"),
+                        (30, "row"), (30, "square")):
         main_shape = s_dec == 1
+        timed = main_shape or (s_dec in (16, 30) and kind == "row")
         clocks = gpu_clocks()
-        r = check_k2(engine, B_MAIN, s_dec, kind, timed=main_shape,
-                     library=main_shape, control=True)
-        if main_shape:
+        r = check_k2(engine, B_MAIN, s_dec, kind, timed=timed,
+                     library=timed, control=True)
+        if timed:
             r["clocks_sm_mem"] = [clocks, gpu_clocks()]
+        if main_shape:
+            r["perf_md_ms"] = K2_PERF_MD_MS
         print(f"[4] K2 B={B_MAIN} S_enc=14 S_dec={s_dec} mask={kind}: "
               + json.dumps(r), flush=True)
         if not r["tf32_control_refused"]:
@@ -2752,6 +3387,8 @@ def main() -> int:
                 fail(f"nn.Transformer yardstick computes another function: "
                      f"{r['library_err']}")
             k2_main = r
+        elif timed:
+            k2_long[s_dec] = r
 
     # ---- the main path ----
     states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B_MAIN,
@@ -2967,6 +3604,40 @@ def main() -> int:
           flush=True)
     anchor_k = {k: sum(c[k] for c in anchor_launches) for k in ("K1", "K2")}
 
+    # ---- the realtime front: a session, a crowd, the daemon ----
+    t16 = time.time()
+    path = clip_path(SEED)
+    session = realtime_session_phase(path, bvh)
+    session["phase_s"] = time.time() - t16
+    print(f"[16] RealtimeSession on the card (6 trackers): one frame at one "
+          f"Adam step vs the CPU from the same state, then {T_REALTIME} "
+          f"frames at the realtime defaults (max_iter 10, window 60: K2 at "
+          f"S_dec 16), frame latency: " + json.dumps(session), flush=True)
+    if not session["ok"]:
+        fail(f"the realtime session failed its checks: {session}")
+    t17 = time.time()
+    crowd = realtime_batch_phase(path, bvh)
+    crowd["phase_s"] = time.time() - t17
+    print(f"[17] RealtimeBatch of {N_CROWD} avatars (6/4/3 trackers): one "
+          f"frame on the card (K1 + K2) vs the CPU's twins, then "
+          f"{T_REALTIME} frames with window phases in lockstep and "
+          f"staggered, frame latency: " + json.dumps(crowd), flush=True)
+    if not crowd["ok"]:
+        fail(f"the realtime batch failed its checks: {crowd}")
+    t18 = time.time()
+    daemon = daemon_phase(path, bvh)
+    daemon["phase_s"] = time.time() - t18
+    daemon["nvidia_smi"] = smi
+    print(f"[18] serving daemon on the card: {N_DAEMON_CLIENTS} raw-socket "
+          f"clients x {T_DAEMON} frames, an eval job while a client steps, "
+          f"the native smoke client: " + json.dumps(daemon), flush=True)
+    if not daemon["ok"]:
+        fail(f"the serving daemon failed its checks: {daemon}")
+    realtime_k = {k: (session["launches"][k]
+                      + sum(c[k] for c in crowd["launches"].values())
+                      + crowd["one_frame"]["launches"][k]
+                      + daemon["launches"][k]) for k in ("K1", "K2")}
+
     def launched(layout, name):
         return sum(r["launches"][name] for r in runs[layout].values())
 
@@ -2974,9 +3645,11 @@ def main() -> int:
         {"name": "K1 drag-iteration block", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/iter_block.cu",
          "replaces": "dragposer_tpu/drag/iter_kernel.py:349",
-         "launches": launches["K1"] + anchor_k["K1"],
+         "launches": launches["K1"] + anchor_k["K1"] + realtime_k["K1"],
          "launches_by_path": {"main [5]": launches["K1"],
-                              "anchor phase [15]": anchor_k["K1"]},
+                              "anchor phase [15]": anchor_k["K1"],
+                              **realtime_launches("K1", session, crowd,
+                                                  daemon)},
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2988,15 +3661,21 @@ def main() -> int:
         {"name": "K2 temporal-transformer forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/temporal_forward.cu",
          "replaces": "dragposer_tpu/ops/temporal_fused.py:248",
-         "launches": launches["K2"] + anchor_k["K2"],
+         "launches": launches["K2"] + anchor_k["K2"] + realtime_k["K2"],
          "launches_by_path": {"main [5]": launches["K2"],
-                              "anchor phase [15]": anchor_k["K2"]},
+                              "anchor phase [15]": anchor_k["K2"],
+                              **realtime_launches("K2", session, crowd,
+                                                  daemon)},
          "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"],
          "bound_f32_cuda_core_ms": k2_main["bound_f32_cuda_core_ms"],
-         "library_tf32_ms": k2_main["library_tf32_ms"]},
+         "library_tf32_ms": k2_main["library_tf32_ms"],
+         "by_s_dec": {s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "max_abs_err")}
+                      for s, r in k2_long.items()}},
         *k3_entries(k3r_main, "K3a rows feed-forward forward",
                     "K3b rows feed-forward backward",
                     "dragposer_tpu_torch/csrc/ff_rows.cu",
@@ -3033,13 +3712,13 @@ def main() -> int:
              "bwd_plain_ms", "bwd_bound_ms")
     k3_times = (*times, "fwd_device_ms", "bwd_device_ms",
                 "fwd_bound_f32_cuda_core_ms", "bwd_bound_f32_cuda_core_ms")
-    print("[16] the same kernels at B=4096, the batch the JAX package "
+    print("[19] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
               "K3a/K3b": {k: k3r_big[k] for k in k3_times},
               "K3c/K3d": {k: k3_big[k] for k in k3_times},
               "K4": {k: k4_big[k] for k in (*times, "library_fwd_ms",
                                             "library_bwd_ms")}}), flush=True)
-    print(f"[16] total {time.time() - t_start:.1f} s")
+    print(f"[19] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout, at first use, then loaded with ``ctypes``.  The file name carries
 a hash of the source and of the shared headers (``csrc/*.cuh``), so an
 edited kernel is never served from a stale library.  Nothing here runs at
-import time.
+import time.  :func:`load` is safe to call from several threads (the
+serving daemon serves each connection on its own): one lock per kernel
+name, and each build writes its own temporary file.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -29,18 +32,36 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()   # guards _LOCKS; never held over a build
+
+
+_NAMED_COUNTS: Dict[str, "KernelCounts"] = {}
 
 
 class KernelCounts:
-    """Launch counters of one kernel and of its plain twin (plain ints)."""
+    """Launch counters of one kernel and of its plain twin (plain ints).
+    A counter made with a ``name`` is reported by :func:`kernel_launches`."""
 
-    def __init__(self):
+    def __init__(self, name: str | None = None):
         self.kernel = 0
         self.plain = 0
+        if name is not None:
+            _NAMED_COUNTS[name] = self
 
     def reset(self):
         self.kernel = 0
         self.plain = 0
+
+
+def kernel_launches() -> dict:
+    """Each named kernel's launches in this process and its plain twin's
+    calls: ``{name: n, name + "_plain": n}`` (K1 and K2 once their modules
+    are imported; what the daemon's ``OP_STATS`` reports as "kernels")."""
+    out = {name: c.kernel for name, c in _NAMED_COUNTS.items()}
+    out.update({f"{name}_plain": c.plain
+                for name, c in _NAMED_COUNTS.items()})
+    return out
 
 
 def _nvcc() -> str:
@@ -68,7 +89,7 @@ def _start_build(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -99,13 +120,21 @@ def build_all(names: List[str]) -> Dict[str, str]:
 def load(name: str, declare=None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed.
     ``declare(lib)`` sets its entry points' ``ctypes`` signatures once, when
-    the library is first loaded, so a launch pays no declaration."""
-    if name not in _LIBS:
-        _finish_build(name, _start_build(name))
-        lib = ctypes.CDLL(str(library_path(name)))
-        if declare is not None:
-            declare(lib)
-        _LIBS[name] = lib
+    the library is first loaded, so a launch pays no declaration.  Threads
+    that ask for one name while it builds wait for that build, and all get
+    the same library."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _LIBS:
+            _finish_build(name, _start_build(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            if declare is not None:
+                declare(lib)
+            _LIBS[name] = lib
     return _LIBS[name]
 
 

@@ -12,7 +12,7 @@
 // lo, hi = tf32(x), lo = tf32(x − hi); x·w ≈ lo·hi + hi·lo + hi·hi summed
 // in float32), which keeps float32 accuracy for three passes:
 // 3 × 155.5 GFLOP / 495 TFLOP/s ≈ 0.95 ms at B = 8192.  Attention scores
-// and values (S ≤ 16, dh = 12), softmax, LayerNorm and the residual adds
+// and values (S ≤ 30, dh = 12), softmax, LayerNorm and the residual adds
 // stay float32 on CUDA cores, as the TPU kernel kept its attention at
 // HIGHEST.  The weights stream from L2 once per block, split: the FF's
 // 6 × 2 × 48 × 2048 × 8 B = 9.4 MB and 0.35 MB of projections, 911 times
@@ -53,6 +53,14 @@
 //   to nearest, rather than chaining 768 wgmma in one accumulator.
 // - Ragged batches: the last block's missing lanes are rows that load as
 //   0 and are never stored.
+// - Sequences up to the positional encoding's 30 rows (a rollout over a
+//   future window W takes W / 4 + 1 decoder steps, so W ≤ 119, as the JAX
+//   package accepts).  The longest sequence is a template parameter of the
+//   kernel: attention keeps a query's scores in SMAX registers and unrolls
+//   its three loops over them.  Two builds, SMAX = 16 (every window up to
+//   63, the code the kernel had when 16 was its only bound) and SMAX = 32;
+//   the launcher takes the smaller that covers max(S_enc, S_dec).  At
+//   S = 30 a block holds G = 4 lanes (120 of its 128 rows).
 //
 // Weights arrive as a table of 84 device pointers (order fixed by
 // dragposer_tpu_torch/ops/temporal_fused.py:_weights): matrices packed and
@@ -74,7 +82,8 @@ constexpr int D_LAT = 24;
 constexpr int NT = 256;     // threads per block
 constexpr int NW = NT / 32; // warps per block
 constexpr int RC = 128;     // rows a block holds (G · max(S_enc, S_dec))
-constexpr int SMAX = 16;    // longest sequence the kernel takes
+constexpr int SMAX_SHORT = 16;  // the two builds' longest sequences
+constexpr int SMAX_LONG = 32;
 constexpr int LD = 52;      // row stride of the D-wide buffers
 constexpr int LDQ = 148;    // row stride of QKV
 constexpr int XLD = 44;     // row stride of the encoder input (K padded to 40)
@@ -532,6 +541,8 @@ __device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {
 // O[(g, q), h*DH + d] = softmax_k(Q·K / sqrt(DH) + mask) · V for each lane
 // g < nl, head h and query q < sq.  mask: additive, (1, sk) or (sq, sk).
 // Q, K, V with row stride LDQ, O with LD; a head's 12 values as 3 float4.
+// sk ≤ SMAX: a query's scores stay in registers.
+template <int SMAX>
 __device__ void attention(const float* Q, const float* K, const float* V,
                           int nl, int sq, int sk,
                           const float* __restrict__ mask, int mask_rows,
@@ -585,6 +596,7 @@ __device__ void attention(const float* Q, const float* K, const float* V,
   }
 }
 
+template <int SMAX>
 __global__ void __launch_bounds__(NT, 1)
 temporal_forward_kernel(Weights w, const float* __restrict__ enc,
                         const float* __restrict__ dec,
@@ -628,7 +640,7 @@ temporal_forward_kernel(Weights w, const float* __restrict__ enc,
 #define L(k) w.p[ENC_BASE + l * ENC_STRIDE + (k)]
     linear<KS_D>(S, LD, Re, L(E_W_IN), L(E_B_IN), 3 * D / 8, QKV, LDQ);
     __syncthreads();
-    attention(QKV, QKV + D, QKV + 2 * D, nl, s_enc, s_enc, nullptr, 0, AO);
+    attention<SMAX>(QKV, QKV + D, QKV + 2 * D, nl, s_enc, s_enc, nullptr, 0, AO);
     __syncthreads();
     linear<KS_D>(AO, LD, Re, L(E_W_OUT), L(E_B_OUT), D / 8, TMP, LD);
     __syncthreads();
@@ -658,7 +670,7 @@ temporal_forward_kernel(Weights w, const float* __restrict__ enc,
     // masked self-attention
     linear<KS_D>(T, LD, Rd, L(S_W_IN), L(S_B_IN), 3 * D / 8, QKV, LDQ);
     __syncthreads();
-    attention(QKV, QKV + D, QKV + 2 * D, nl, s_dec, s_dec, mask, mask_rows,
+    attention<SMAX>(QKV, QKV + D, QKV + 2 * D, nl, s_dec, s_dec, mask, mask_rows,
               AO);
     __syncthreads();
     linear<KS_D>(AO, LD, Rd, L(S_W_OUT), L(S_B_OUT), D / 8, TMP, LD);
@@ -671,7 +683,7 @@ temporal_forward_kernel(Weights w, const float* __restrict__ enc,
     linear<KS_D>(S, LD, Re, L(C_W_IN) + (D / 8) * KS_D * FRAG,
                  L(C_B_IN) + D, 2 * D / 8, QKV + D, LDQ);
     __syncthreads();
-    attention(QKV, QKV + D, QKV + 2 * D, nl, s_dec, s_enc, nullptr, 0, AO);
+    attention<SMAX>(QKV, QKV + D, QKV + 2 * D, nl, s_dec, s_enc, nullptr, 0, AO);
     __syncthreads();
     linear<KS_D>(AO, LD, Rd, L(C_W_OUT), L(C_B_OUT), D / 8, TMP, LD);
     __syncthreads();
@@ -690,9 +702,27 @@ int lanes_per_block(int s_enc, int s_dec) {
   return RC / (s_enc > s_dec ? s_enc : s_dec);
 }
 
+template <int SMAX>
+cudaError_t launch(const Weights& w, const float* enc, const float* dec,
+                   const float* mask, int mask_rows, float* out, int B,
+                   int s_enc, int s_dec, cudaStream_t stream) {
+  const int G = lanes_per_block(s_enc, s_dec);
+  const size_t smem = static_cast<size_t>(SMEM_FLOATS) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      temporal_forward_kernel<SMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = (B + G - 1) / G;
+  temporal_forward_kernel<SMAX><<<grid, NT, smem, stream>>>(
+      w, enc, dec, mask, mask_rows, out, B, G, s_enc, s_dec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int temporal_forward_n_pointers() { return N_PTR; }
+
+extern "C" int temporal_forward_max_sequence() { return SMAX_LONG; }
 
 extern "C" int temporal_forward_lanes_per_block(int s_enc, int s_dec) {
   return lanes_per_block(s_enc, s_dec);
@@ -700,26 +730,26 @@ extern "C" int temporal_forward_lanes_per_block(int s_enc, int s_dec) {
 
 // ptrs: host array of N_PTR device pointers.  enc (B, s_enc, 33),
 // dec (B, s_dec, 24), mask (mask_rows, s_dec), out (B, s_dec, 24); float32,
-// contiguous.  Launches on `stream`; returns cudaGetLastError().
+// contiguous; s_enc, s_dec ≤ SMAX_LONG.  Launches the SMAX_SHORT build
+// where both sequences fit it, else the SMAX_LONG one, on `stream`;
+// returns cudaGetLastError().
 extern "C" int temporal_forward(const void* const* ptrs, const void* enc,
                                 const void* dec, const void* mask,
                                 int mask_rows, void* out, int B, int s_enc,
                                 int s_dec, void* stream) {
-  if (s_enc < 1 || s_enc > SMAX || s_dec < 1 || s_dec > SMAX || B < 1)
+  if (s_enc < 1 || s_enc > SMAX_LONG || s_dec < 1 || s_dec > SMAX_LONG ||
+      B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Weights w;
   for (int i = 0; i < N_PTR; ++i) w.p[i] = static_cast<const float*>(ptrs[i]);
-  const int G = lanes_per_block(s_enc, s_dec);
-  const size_t smem = static_cast<size_t>(SMEM_FLOATS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (B + G - 1) / G;
-  temporal_forward_kernel<<<grid, NT, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      w, static_cast<const float*>(enc), static_cast<const float*>(dec),
-      static_cast<const float*>(mask), mask_rows, static_cast<float*>(out),
-      B, G, s_enc, s_dec);
-  return static_cast<int>(cudaGetLastError());
+  const auto e = static_cast<const float*>(enc);
+  const auto d = static_cast<const float*>(dec);
+  const auto m = static_cast<const float*>(mask);
+  const auto o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      (s_enc > s_dec ? s_enc : s_dec) <= SMAX_SHORT
+          ? launch<SMAX_SHORT>(w, e, d, m, mask_rows, o, B, s_enc, s_dec, st)
+          : launch<SMAX_LONG>(w, e, d, m, mask_rows, o, B, s_enc, s_dec, st);
+  return static_cast<int>(err);
 }

@@ -176,6 +176,12 @@ def _temporal_rollout_core_T(model: DragModel, hyper: DragHyper, tparam,
     lat = (lat - model.means_latent) / model.stds_latent
     enc_in = torch.cat((lat, disp_acc, heights), dim=-1).contiguous()
     n_steps = hyper.temporal_future_window // step + 1
+    longest = temporal_fused.max_sequence(model.temporal)
+    if n_steps > longest:
+        raise ValueError(
+            f"temporal_future_window {hyper.temporal_future_window} takes "
+            f"{n_steps} decoder steps; the temporal model's positional "
+            f"encoding has {longest} rows (window ≤ {longest * step - 1})")
     tokens = torch.zeros(B, n_steps, latent_dim, device=token0.device)
     tokens[:, 0] = (token0 - model.means_latent) / model.stds_latent
     outs = torch.zeros_like(tokens)

@@ -30,7 +30,7 @@ class _Counts(_build.KernelCounts):
     forward (:func:`aux_at`), which only the twin makes."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__("K1")
         self.aux = 0
 
     def reset(self):
@@ -64,6 +64,17 @@ class FastContext(NamedTuple):
     dq_perm: Any   # (4J,) quat channels of a (B, J*8) dual-quat row
 
 
+def mask_planes(mask, weights):
+    """The loss weights of :class:`FastContext`: ``w_pos``, ``w_rot``
+    (J, 1) and ``n_ee`` () from a mask (J,) and weights (J, 2), or per lane
+    (J, B) and (B,) from (B, J) and (B, J, 2)."""
+    if mask.dim() == 2:
+        return ((mask * weights[..., 0]).T, (mask * weights[..., 1]).T,
+                torch.clamp(mask.sum(dim=-1), min=1.0))
+    return ((mask * weights[:, 0])[:, None], (mask * weights[:, 1])[:, None],
+            torch.clamp(mask.sum(), min=1.0))
+
+
 def make_context(model: eng.DragModel, skeleton: Skeleton,
                  hyper: eng.DragHyper) -> FastContext:
     folded = model.decoder
@@ -78,15 +89,7 @@ def make_context(model: eng.DragModel, skeleton: Skeleton,
     W3p = torch.cat((W3[: 4 * J][idx(perm)], W3[4 * J: 4 * J + 3]))
     b3p = torch.cat((b3[: 4 * J][idx(perm)], b3[4 * J: 4 * J + 3]))[:, None]
     mean_q, std_q = eng._quat_stats(model)
-    if model.mask.dim() == 2:
-        # per-lane masks/weights: (J, B) planes and a (B,) count
-        w_pos = (model.mask * model.weights[..., 0]).T
-        w_rot = (model.mask * model.weights[..., 1]).T
-        n_ee = torch.clamp(model.mask.sum(dim=-1), min=1.0)
-    else:
-        w_pos = (model.mask * model.weights[:, 0])[:, None]
-        w_rot = (model.mask * model.weights[:, 1])[:, None]
-        n_ee = torch.clamp(model.mask.sum(), min=1.0)
+    w_pos, w_rot, n_ee = mask_planes(model.mask, model.weights)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
     return FastContext(
         W1=folded["ws"][0], b1=folded["bs"][0][:, None],

@@ -132,6 +132,19 @@ def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
     )
 
 
+def with_masks(ctx: fast_iter.FastContext, kctx: KernelContext, mask,
+               weights):
+    """``ctx`` and ``kctx`` for other masks (J,) / (B, J) and weights
+    (J, 2) / (B, J, 2): only the loss weights and the end-effector count are
+    rebuilt, the packed weights are kept (the realtime paths change masks
+    every frame)."""
+    w_pos, w_rot, n_ee = fast_iter.mask_planes(mask, weights)
+    c = lambda a: a.contiguous().to(torch.float32)  # noqa: E731
+    return (ctx._replace(w_pos=w_pos, w_rot=w_rot, n_ee=n_ee),
+            kctx._replace(w_pos=c(w_pos), w_rot=c(w_rot),
+                          n_ee=c(n_ee.reshape(-1))))
+
+
 _P = ctypes.c_void_p
 
 

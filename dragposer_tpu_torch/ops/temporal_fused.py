@@ -31,11 +31,11 @@ FF = 2048
 LAYERS = 3
 D_ENC = 33
 D_LAT = 24
-SMAX = 16       # longest sequence the kernel takes
+SMAX = 32       # longest sequence the kernel's builds take (csrc SMAX_LONG)
 ROWS = 128      # rows a kernel block holds: G · max(S_enc, S_dec)
 _EPS = 1e-5
 
-COUNTS = _build.KernelCounts()
+COUNTS = _build.KernelCounts("K2")
 
 _ENC_KEYS = ("attn_w_in", "attn_b_in", "attn_w_out", "attn_b_out",
              "ff_w1", "ff_b1", "ff_w2", "ff_b2", "ln1", "ln2")
@@ -50,6 +50,13 @@ _MATRICES = {"w_in_enc", "w_in_dec", "w_out", "attn_w_in", "attn_w_out",
              "self_w_in", "self_w_out", "cross_w_in", "cross_w_out"}
 _FF = {"ff_w1", "ff_w2"}
 FC = 64         # FF hidden columns per kernel chunk
+
+
+def max_sequence(packed) -> int:
+    """Longest encoder or decoder sequence :func:`forward` takes: the rows
+    of the positional encoding (past + future frames, 30), as in the JAX
+    package, within the kernel's ``SMAX``."""
+    return min(SMAX, int(packed["pe"].shape[0]))
 
 
 def lanes_per_block(s_enc: int, s_dec: int) -> int:
@@ -285,6 +292,10 @@ def _declare(lib):
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.temporal_forward_n_pointers.restype = ctypes.c_int
+    lib.temporal_forward_max_sequence.restype = ctypes.c_int
+    if lib.temporal_forward_max_sequence() != SMAX:
+        raise RuntimeError("temporal_forward's longest sequence does not "
+                           "match SMAX")
     lib.temporal_forward_lanes_per_block.argtypes = [ctypes.c_int,
                                                      ctypes.c_int]
     lib.temporal_forward_lanes_per_block.restype = ctypes.c_int
@@ -300,9 +311,10 @@ def _check_call(packed, enc_in, dec_in, tgt_mask) -> None:
     B, s_enc = enc_in.shape[0], enc_in.shape[1]
     s_dec = dec_in.shape[1]
     dev = enc_in.device
-    if not (1 <= s_enc <= SMAX and 1 <= s_dec <= SMAX):
+    longest = max_sequence(packed)
+    if not (1 <= s_enc <= longest and 1 <= s_dec <= longest):
         raise ValueError(f"sequence lengths {s_enc}, {s_dec} outside "
-                         f"1..{SMAX}")
+                         f"1..{longest} (the positional encoding's rows)")
     _build.check_tensor("enc_in", enc_in, (B, s_enc, D_ENC), dev)
     _build.check_tensor("dec_in", dec_in, (B, s_dec, D_LAT), dev)
     if tgt_mask.dim() != 2 or tgt_mask.shape[0] not in (1, s_dec):

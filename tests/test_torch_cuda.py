@@ -12,9 +12,11 @@ K1 (carry and aux, its TF32 control, lanes that take no step, no plain
 code), K2, K3a/K3b (rows) and K3c/K3d (lanes) with the forward's and the
 backward's TF32 controls, the backward's ReLU gates against the forward's
 and both kernels' tensor-core instructions, K4a/K4b, and one training step of each layout on the card
-against the CPU; and phase [15]'s anchor checks: ``engine.run`` on the
+against the CPU; phase [15]'s anchor checks: ``engine.run`` on the
 card against the CPU (K2 alone) and ``run_batch`` against the pipelined
-path (K1 + K2).
+path (K1 + K2); K2 at the realtime rollouts' lengths (16 and 30 decoder
+steps) and phases [16]-[17] at small sizes: a ``RealtimeSession`` and a
+``RealtimeBatch`` frame on the card against the CPU.
 """
 
 import pytest
@@ -308,4 +310,37 @@ def test_anchor_matches_pipelined_path(engines):
     _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
     r = chip_smoke.anchor_vs_pipeline(
         gpu, bvh, means, stds, Skeleton.build(parents, offsets, bvh.names))
+    assert r["ok"], r
+
+
+# K2 at the realtime rollouts' lengths: 16 decoder steps (window 60) in the
+# 16-step build, 30 (window 119, the positional encoding's rows) in the
+# 32-step build; B = 37 leaves a ragged block at G = 8 and at G = 4.
+@pytest.mark.parametrize("s_dec,kind", [(16, "row"), (30, "row"),
+                                        (30, "square")])
+def test_k2_long_rollouts_match_plain(engines, s_dec, kind):
+    r = chip_smoke.check_k2(engines[0], 37, s_dec, kind, timed=False)
+    assert r["ok"], r
+
+
+def test_k2_builds_cover_the_positional_encoding(engines):
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    lib = temporal_fused._library()
+    assert lib.temporal_forward_max_sequence() == temporal_fused.SMAX
+    assert temporal_fused.max_sequence(engines[0].model.temporal) == 30
+    for s in range(1, 31):
+        assert lib.temporal_forward_lanes_per_block(14, s) == \
+            temporal_fused.lanes_per_block(14, s)
+
+
+def test_realtime_session_card_matches_cpu(engines):
+    r = chip_smoke.realtime_session_phase(
+        chip_smoke.clip_path(chip_smoke.SEED), engines[2], frames=4)
+    assert r["ok"], r
+
+
+def test_realtime_batch_frame_card_matches_cpu(engines):
+    r = chip_smoke.realtime_batch_phase(
+        chip_smoke.clip_path(chip_smoke.SEED), engines[2], n=16, frames=4)
     assert r["ok"], r

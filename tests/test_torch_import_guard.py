@@ -1,11 +1,16 @@
-"""The port imports neither ``jax`` nor the JAX package.
+"""The port imports neither ``jax`` nor the JAX package, and runs none of
+its modules.
 
 Every module of ``dragposer_tpu_torch/`` and ``chip_smoke.py`` is parsed
-(not imported) and each ``import`` / ``from … import`` is checked.
+(not imported): each ``import`` / ``from … import`` is checked, and so is
+every string, which must not name a module of the JAX package to run
+(``-m dragposer_tpu.runtime.server``, or the dotted name alone, as a
+subprocess or ``importlib`` would take it).
 """
 
 import ast
 import pathlib
+import re
 
 import pytest
 
@@ -13,6 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "dragposer_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "dragposer_tpu")
+RUNS_JAX_MODULE = re.compile(
+    r"-m\s+dragposer_tpu\.|^\s*dragposer_tpu(\.\w+)+\s*$")
 
 
 def _imported(path):
@@ -37,7 +44,11 @@ def test_sources_found():
                    "train/vae.py", "cli/train_vae.py", "models/vae.py",
                    "models/skeleton_nn.py", "export.py",
                    "drag/constraints.py", "drag/hypotheses.py",
-                   "drag/engine.py", "metrics.py"):
+                   "drag/engine.py", "metrics.py", "runtime/realtime.py",
+                   "runtime/capi.py", "runtime/server.py",
+                   "runtime/client.py", "client/math.py",
+                   "client/retarget.py", "client/driver.py",
+                   "cli/unity_server.py"):
         assert ROOT / "dragposer_tpu_torch" / module in SOURCES
 
 
@@ -47,3 +58,23 @@ def test_no_jax_import(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_runs_no_jax_module(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not RUNS_JAX_MODULE.search(node.value), (
+                f"{path.name}:{node.lineno} names a JAX package module to "
+                f"run: {node.value!r}")
+
+
+def test_the_string_check_catches_a_module_to_run():
+    for text in ("-m dragposer_tpu.runtime.server", "dragposer_tpu.cli.x",
+                 "python -m  dragposer_tpu.runtime"):
+        assert RUNS_JAX_MODULE.search(text), text
+    for text in ("-m dragposer_tpu_torch.runtime.server",
+                 "/tmp/dragposer_tpu.sock", "port of dragposer_tpu/runtime"):
+        assert not RUNS_JAX_MODULE.search(text), text
