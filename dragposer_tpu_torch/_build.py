@@ -8,13 +8,15 @@ a hash of the source and of the shared headers (``csrc/*.cuh``), so an
 edited kernel is never served from a stale library.  Nothing here runs at
 import time.  :func:`load` is safe to call from several threads (the
 serving daemon serves each connection on its own): one lock per kernel
-name, and each build writes its own temporary file.
+name, and each build writes its own temporary file (named by pid, thread
+id and a build count).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -34,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()   # guards _LOCKS; never held over a build
+_BUILD_IDS = itertools.count()   # a thread id may be reused once it ends
 
 
 _NAMED_COUNTS: Dict[str, "KernelCounts"] = {}
@@ -89,7 +92,8 @@ def _start_build(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}."
+                          f"{next(_BUILD_IDS)}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -7,17 +7,21 @@ Usage::
         [--config 6_trackers | path/to/config.json] [--verbose] [--batch]
         [--restarts N] [--branch-every N] [--branch-sigma S]
         [--survivors K] [--constraints SPEC] [--no-temporal]
-        [--max-frames N] [--save-dir data] [--profile DIR]
+        [--max-frames N] [--save-dir data] [--profile DIR] [--mesh N]
         [--device cuda|cpu]
 
 Each file runs on its own (:func:`evaluate_file`: the per-lane anchor
 ``engine.run``, or restarts, or the hypothesis beam) unless ``--batch`` is
 given with more than one file: then all files run concurrently in one
 pipelined batch (:func:`evaluate_batched`; ragged lengths halt per lane).
+With ``--batch``, ``--mesh N`` cuts the lanes over N local devices, one
+engine replica, CUDA stream and host thread a device.  The default is one
+device, where the JAX CLI's is every local device: the threads share one
+interpreter and the path is host-bound, so on several cards it runs
+slower than on one (PERF.md).
 Restarts, the beam and constraints default to the config's
 (``3_trackers``: a 64-lane beam re-branched every 512 frames).  Prints
-MPJPE / MPEEPE (and per file jitter and time) as the JAX CLI does; the
-JAX CLI's ``--mesh`` is not ported.
+MPJPE / MPEEPE (and per file jitter and time) as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import threading
 import time
 
 import numpy as np
@@ -36,10 +41,11 @@ from dragposer_tpu_torch.data import encoding
 from dragposer_tpu_torch.drag import constraints as constraints_mod
 from dragposer_tpu_torch.drag import hypotheses
 from dragposer_tpu_torch.drag.engine import (DragEngine, DragHyper, DragModel,
-                                             FrameOutput, to_host)
+                                             DragState, FrameOutput, to_host)
 from dragposer_tpu_torch.io.bvh import BVH
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops.topology import Skeleton
+from dragposer_tpu_torch.parallel import mesh as meshlib
 
 # Offline optimizer budget (reference ``eval_drag.py:210-215``).
 EVAL_STOP_EPS_POS = 1e-4
@@ -68,7 +74,8 @@ def build_engine(model_dir: str, parents, tracker: cfg.TrackerConfig, *,
     tracker config on ``device`` (``cuda`` unless ``"cpu"``).
     ``constraints`` is a ``constraints.parse_spec`` string of extra loss
     terms; ``None`` takes the config's ``default_constraints``."""
-    params, means, stds = loading.load_generator(model_dir)
+    params, means, stds = loading.load_generator(model_dir, parents,
+                                                 cfg.VAE_PARAM)
     loaded = loading.load_temporal(model_dir) if use_temporal else None
     if use_temporal and loaded is None:
         print(f"WARNING: no temporal checkpoint in {model_dir}; "
@@ -235,11 +242,16 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
                      seed: int = cfg.VAE_PARAM["seed"],
                      downsample_gt: int = 1, restarts: int = 1,
                      branch_every: int = 0, branch_sigma: float = 0.25,
-                     branch_survivors: int = 8, sync_k: int = 24):
+                     branch_survivors: int = 8, sync_k: int = 24,
+                     mesh_devices: int = 1):
     """Reconstruct many sequences concurrently: one pipelined batch (each
     file ``restarts`` times, the lowest fit loss kept per file), or with
     ``restarts > 1`` and ``branch_every > 0`` the hypothesis beam per file
-    (``hypotheses.run_hypotheses_batched``).
+    (``hypotheses.run_hypotheses_batched``).  The pipelined batch runs
+    data-parallel over ``mesh_devices`` local devices of the engine's kind
+    (``parallel.mesh.local_devices``; default 1: this one):
+    :func:`_run_sharded`, with the per-device engine replicas built before
+    the clock starts.
 
     Sequences are padded to the longest by repeating their last frame and
     each lane halts at its own length.  Initial latents are drawn from a
@@ -282,10 +294,21 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
         dqs, gp, gr, h0 = (np.repeat(a, R, axis=0) for a in (dqs, gp, gr, h0))
     states = engine.init_state(gen, dqs[:, 0][:, :, None], gp[:, 0],
                                gr[:, 0], h0)
+    devices = meshlib.local_devices(engine.device.type)
+    want = int(mesh_devices)
+    if want > len(devices):
+        raise ValueError(f"--mesh {want} > {len(devices)} local devices")
+    if want > 1:
+        for dev in devices[:want]:
+            _replica(engine, dev)
     start = time.time()
-    _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=sync_k,
-                                        lengths=lengths_b)
-    out = to_host(out)
+    if want > 1:
+        out = _run_sharded(engine, want, states, dqs, gp, gr, lengths_b,
+                           sync_k)
+    else:
+        _, out = engine.run_batch_pipelined(states, dqs, gp, gr,
+                                            sync_k=sync_k, lengths=lengths_b)
+        out = to_host(out)
     elapsed = time.time() - start
     if R > 1:
         # per file, the lowest fit loss over each lane's real frames
@@ -296,6 +319,65 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
         out = FrameOutput(*[a[np.arange(len(files)) * R + best] for a in out])
         print(f"restarts: kept {best.tolist()} of {R} per file")
     return _export_batched(out.pose, out.global_pos, elapsed, *export_args)
+
+
+def _run_sharded(engine: DragEngine, n_dev: int, states: DragState, dqs, gp,
+                 gr, lengths, sync_k: int) -> FrameOutput:
+    """Data-parallel lanes (the JAX CLI's ``--mesh``): pad the lane count to
+    a multiple of ``n_dev`` with inert lanes (copies of lane 0 of length 0:
+    they never step), cut every lane axis over a 1-D data mesh of local
+    devices, run each piece through ``run_batch_pipelined`` on its
+    device's engine replica (K1's and K2's weights on that device) and
+    CUDA stream, each in a thread of its own, then gather on the host and
+    drop the padding.  Lanes are independent: each computes what the
+    unsharded run computes, up to the rounding that batched products do
+    otherwise at another lane count."""
+    n = dqs.shape[0]
+    pad = (-n) % n_dev
+
+    def pad1(a):
+        a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        return torch.cat((a, a[:1].repeat((pad,) + (1,) * (a.dim() - 1))))
+
+    lengths = np.concatenate((np.asarray(lengths),
+                              np.zeros(pad, np.asarray(lengths).dtype)))
+    mesh = meshlib.make_mesh(data=n_dev, devices=meshlib.local_devices(
+        engine.device.type))
+    pieces = meshlib.shard_batch(
+        (DragState(*[pad1(x) for x in states]), pad1(dqs), pad1(gp),
+         pad1(gr), torch.as_tensor(lengths)), mesh)
+    outs, errors = [None] * n_dev, []
+
+    def run(i):
+        dev = mesh.devices[i, 0]
+        try:
+            replica = _replica(engine, dev)
+            with contextlib.ExitStack() as ctx:
+                if dev.type == "cuda":
+                    ctx.enter_context(torch.cuda.device(dev))
+                    ctx.enter_context(torch.cuda.stream(torch.cuda.Stream(
+                        dev)))
+                _, out = replica.run_batch_pipelined(*pieces[i][:4],
+                                                     sync_k=sync_k,
+                                                     lengths=pieces[i][4])
+                outs[i] = to_host(out)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_dev)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return FrameOutput(*[np.concatenate(x)[:n] for x in zip(*outs)])
+
+
+def _replica(engine: DragEngine, dev) -> DragEngine:
+    """The engine that runs on ``dev``: ``engine`` itself on the CPU, its
+    replica (weights copied once per engine) on a card."""
+    return engine if dev.type == "cpu" else engine.replica(dev)
 
 
 def _export_batched(poses, global_pos, elapsed, files, lengths, bvhs, means,
@@ -379,6 +461,10 @@ def main(argv=None):
                         help="extra loss terms, e.g. 'feet_floor:0.1,"
                              "head_hips_colinear:0.05' (drag/constraints.py); "
                              "default: the config's; '' turns them off")
+    parser.add_argument("--mesh", type=int, default=1, metavar="N",
+                        help="with --batch: shard the lane axis over a "
+                             "1-D data mesh of N local devices (default: "
+                             "1, single-device)")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -418,7 +504,8 @@ def main(argv=None):
             results = evaluate_batched(
                 engine, means, stds, skeleton, files,
                 max_frames=args.max_frames, save_dir=args.save_dir,
-                downsample_gt=args.downsample_gt, **search)
+                downsample_gt=args.downsample_gt, mesh_devices=args.mesh,
+                **search)
         else:
             results = []
             for path in files:

@@ -7,9 +7,10 @@
 * :mod:`client.retarget` — T-pose tracker retargeting
   (``Core/TrackerRetargeter.cs``);
 * :mod:`client.driver` — the per-frame client pipeline (``Core/DragPoser.cs``);
-
-The JAX package's ``client.playback``, ``client.vr``, ``cli/interactive``
-and ``cli/visualize`` are not ported yet.
+* :mod:`client.playback` — BVH-driven trackers (``BVH/BVHPlayback.cs``);
+* :mod:`client.vr` — VR device detection, role identification and VRIK
+  calibration behind a device-provider protocol (the SteamVR layer);
+* ``client/viewer.html`` — the browser viewer ``cli/interactive`` serves.
 """
 
 from dragposer_tpu_torch.client import math  # noqa: F401

@@ -126,6 +126,10 @@ class TrackerConfig:
     def mask_indices(self) -> np.ndarray:
         return np.nonzero(np.asarray(self.mask))[0]
 
+    @property
+    def n_end_effectors(self) -> int:
+        return int(np.asarray(self.mask).sum())
+
     def mask_array(self) -> np.ndarray:
         return np.asarray(self.mask, dtype=np.float32)
 

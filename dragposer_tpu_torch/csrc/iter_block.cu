@@ -64,10 +64,28 @@
 // - Everything else stays float32 on CUDA cores, with IEEE sqrt and
 //   division (no fast-math).
 //
-// A build of the same source with PASSES = 1 (entry iter_block_tf32) runs
-// the products in one TF32 pass: the control that K1's tolerance must
-// refuse, never on the main path.  The timed build (iter_block_timed)
-// reads the SM clock after each phase of each step.
+// Two builds of the kernel, its limits template parameters (struct Build):
+// - the narrow build (Narrow: J ≤ 32, L ≤ 32, H1/H2 ≤ 64; entries
+//   iter_block*), the design above: its weights in shared memory, 4 tiles
+//   a block, one 32-bit word a joint in each topology mask;
+// - the general build (General: J ≤ 128, L ≤ 128, H1/H2 ≤ 272; entries
+//   iter_block_general*) for every model past the narrow limits.  Its
+//   split weights (~375 KB at a 64-joint chain, ~1.5 MB at a 128-joint
+//   chain with latent 128) do not fit the 227 KB of shared memory a block
+//   has, so its products read their fragments from device memory, where
+//   they stay resident in the 50 MB L2; the per-team state stays in shared
+//   memory (~220 KB at J = 128, so one tile a block, with up to 255
+//   registers a thread for a warp's 9 accumulator tiles at H = 272).  A
+//   warp owns latent tiles w, w + 4, ...; a joint's masks take (J + 31) /
+//   32 words, summed in ascending joint order as in the narrow build.
+// The wrapper takes the narrow build wherever a model fits it, so the main
+// path at the example's 22 joints runs the narrow kernel unchanged.
+//
+// A build of the same source with PASSES = 1 (entries iter_block_tf32,
+// iter_block_general_tf32) runs the products in one TF32 pass: the control
+// that K1's tolerance must refuse, never on the main path.  The timed builds
+// (iter_block_timed, iter_block_general_timed) read the SM clock after each
+// phase of each step.
 //
 // Plain C interface, loaded with ctypes
 // (dragposer_tpu_torch/drag/iter_kernel.py).
@@ -76,15 +94,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TILE = 16;    // lanes per tile: the M of mma.m16n8k8
-constexpr int MAXJ = 32;    // joints (a bit each in the topology masks)
-constexpr int MAXL = 32;    // latent dims
-constexpr int MAXH = 64;    // hidden widths H1, H2
-constexpr int KS1M = MAXL / 8;   // latent tiles
-constexpr int NT1M = MAXH / 8;   // H1 tiles
-constexpr int NT2M = MAXH / 8;   // H2 tiles
 constexpr int FRAG = 128;   // floats of a packed fragment block (32 × 4)
 constexpr float B1 = 0.9f, B2 = 0.999f, ADAM_EPS = 1e-8f;
 constexpr float C1 = static_cast<float>(1.0 - 0.9);
@@ -346,11 +360,30 @@ __device__ __forceinline__ void load_bt(const float* P, int ks, int k, int n,
 // stored as they come and read back as A fragments).
 constexpr int TEAM = 4;
 constexpr int TEAM_THREADS = TEAM * 32;
-constexpr int MAX_TEAMS = 4;                    // tiles a block
-constexpr int NT1W = (NT1M + TEAM - 1) / TEAM;  // a warp's H1 tiles
-constexpr int NT2W = (NT2M + TEAM - 1) / TEAM;  // a warp's H2 tiles
 constexpr int NG3 = 3;                          // H3 tiles a pass
-static_assert(KS1M <= TEAM, "a latent tile a warp");
+
+// A build's limits: joints, latent dims and hidden widths H1, H2 (multiples
+// of 8 and of 32 joints), tiles a block, the blocks an SM must hold (which
+// sets the register budget), and whether the weights sit in shared memory.
+template <int MAXJ_, int MAXL_, int MAXH_, int TEAMS_, int MIN_BLOCKS_,
+          bool SMEM_W_>
+struct Build {
+  static constexpr int MAXJ = MAXJ_, MAXL = MAXL_, MAXH = MAXH_;
+  static constexpr int TEAMS = TEAMS_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr bool SMEM_W = SMEM_W_;
+  static constexpr int MW = (MAXJ + 31) / 32;           // mask words a joint
+  static constexpr int KS1W = (MAXL / 8 + TEAM - 1) / TEAM;  // a warp's
+                                                             // latent tiles
+  static constexpr int NT1W = (MAXH / 8 + TEAM - 1) / TEAM;  // H1 tiles
+  static constexpr int NT2W = (MAXH / 8 + TEAM - 1) / TEAM;  // H2 tiles
+};
+using Narrow = Build<32, 32, 64, 4, 1, true>;
+using General = Build<128, 128, 272, 1, 2, false>;
+
+// The LeakyReLU gates of a warp's NM output tiles, a bit each.
+template <int NM>
+using Gates = typename std::conditional<(4 * NM <= 32), uint32_t,
+                                        unsigned long long>::type;
 
 __device__ __forceinline__ void team_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(TEAM_THREADS) : "memory");
@@ -399,11 +432,11 @@ __device__ __forceinline__ void team_product(const float* r0, const float* r1,
 // bias added if given and, with `act`, LeakyReLU; returns the gates
 // (pre-activation ≥ 0) as bits 4i + e.
 template <int NM>
-__device__ __forceinline__ uint32_t store_tiles(float (&y)[NM][4], int cnt,
-                                                int first, const float* bias,
-                                                bool act, float* Y, int ldy) {
+__device__ __forceinline__ Gates<NM> store_tiles(float (&y)[NM][4], int cnt,
+                                                 int first, const float* bias,
+                                                 bool act, float* Y, int ldy) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t gates = 0;
+  Gates<NM> gates = 0;
 #pragma unroll
   for (int i = 0; i < NM; ++i) {
     if (i >= cnt) break;
@@ -415,7 +448,7 @@ __device__ __forceinline__ uint32_t store_tiles(float (&y)[NM][4], int cnt,
     if (act) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (y[i][e] >= 0.f) gates |= 1u << (4 * i + e);
+        if (y[i][e] >= 0.f) gates |= Gates<NM>(1) << (4 * i + e);
         y[i][e] = leaky(y[i][e]);
       }
     }
@@ -429,7 +462,7 @@ __device__ __forceinline__ uint32_t store_tiles(float (&y)[NM][4], int cnt,
 // The backward's LeakyReLU: gradients through the forward's gates.
 template <int NM>
 __device__ __forceinline__ void apply_gates(float (&y)[NM][4], int cnt,
-                                            uint32_t gates) {
+                                            Gates<NM> gates) {
 #pragma unroll
   for (int i = 0; i < NM; ++i) {
     if (i >= cnt) break;
@@ -448,18 +481,38 @@ enum { PH_DEC_FWD, PH_QUATS, PH_FK, PH_LOSS, PH_REDUCE, PH_AUX, PH_SUBTREE,
        PH_QUAT_GRAD, PH_DEC_BWD, PH_ADAM, N_PHASES };
 constexpr int CLOCK_SLOTS = 16;
 
-template <int PASSES, bool TIMED>
-__global__ void __launch_bounds__(MAX_TEAMS * TEAM_THREADS, 1)
+// The loop over the set bits of joint j's mask m, ascending: the body runs
+// with joint `a` (MW words a joint at most, nw here; word wd at m[wd * J +
+// j]).  With one word it is the loop of the build before the general one,
+// written out, so that the narrow build compiles as that build did.
+#define FOR_EACH_BIT(m, j, a, ...)                                      \
+  if constexpr (BD::MW == 1) {                                          \
+    for (unsigned msk = (m)[j]; msk; msk &= msk - 1) {                  \
+      const int a = __ffs(msk) - 1;                                     \
+      __VA_ARGS__                                                       \
+    }                                                                   \
+  } else {                                                              \
+    for (int wd = 0; wd < nw; ++wd)                                     \
+      for (unsigned msk = (m)[wd * J + (j)]; msk; msk &= msk - 1) {     \
+        const int a = 32 * wd + __ffs(msk) - 1;                         \
+        __VA_ARGS__                                                     \
+      }                                                                 \
+  }
+
+template <class BD, int PASSES, bool TIMED>
+__global__ void __launch_bounds__(BD::TEAMS * TEAM_THREADS, BD::MIN_BLOCKS)
 iter_block_kernel(const Params p, const Layout y) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int J = p.J, L = p.L;
+  const int nw = BD::MW == 1 ? 1 : (J + 31) >> 5;   // mask words a joint
 
   // ---- constants, once per block ----
   {
     const float4* src = reinterpret_cast<const float4*>(p.frags);
-    for (int i = threadIdx.x; i < y.o_b1 / 4; i += blockDim.x)
-      smem4[i] = __ldg(src + i);
+    if (BD::SMEM_W)
+      for (int i = threadIdx.x; i < y.o_b1 / 4; i += blockDim.x)
+        smem4[i] = __ldg(src + i);
     float* b1s = sm + y.o_b1;
     for (int i = threadIdx.x; i < 8 * y.nt1; i += blockDim.x)
       b1s[i] = i < p.H1 ? p.b1[i] : 0.f;
@@ -480,13 +533,15 @@ iter_block_kernel(const Params p, const Layout y) {
       sm[y.o_sdm + 3 + threadIdx.x] = p.md[threadIdx.x];
     }
     int* topo = reinterpret_cast<int*>(sm + y.o_topo);
-    for (int i = threadIdx.x; i < 4 * J; i += blockDim.x) topo[i] = p.topo[i];
+    for (int i = threadIdx.x; i < (1 + 3 * nw) * J; i += blockDim.x)
+      topo[i] = p.topo[i];
   }
   __syncthreads();
 
-  const float* P1 = sm;
-  const float* P2 = sm + y.o_p2;
-  const float* P3 = sm + y.o_p3;
+  // the packed weights: in shared memory, or read from device memory
+  const float* P1 = BD::SMEM_W ? sm : p.frags;
+  const float* P2 = P1 + y.o_p2;
+  const float* P3 = P1 + y.o_p3;
   const float* sb1 = sm + y.o_b1;
   const float* sb2 = sm + y.o_b2;
   const float* sb3 = sm + y.o_b3;
@@ -497,8 +552,8 @@ iter_block_kernel(const Params p, const Layout y) {
   const float md[3] = {sm[y.o_sdm + 3], sm[y.o_sdm + 4], sm[y.o_sdm + 5]};
   const int* spar = reinterpret_cast<const int*>(sm + y.o_topo);
   const unsigned* sanc = reinterpret_cast<const unsigned*>(spar + J);
-  const unsigned* sdesc = sanc + J;
-  const unsigned* schild = sdesc + J;
+  const unsigned* sdesc = sanc + nw * J;
+  const unsigned* schild = sdesc + nw * J;
 
   const int team = threadIdx.x / TEAM_THREADS;
   const int tt = threadIdx.x % TEAM_THREADS;     // thread of the team
@@ -553,21 +608,27 @@ iter_block_kernel(const Params p, const Layout y) {
   const float kr_lane = p.lambda_rot * 2.f / rot_scale;
 
   // ---- the accumulator layout: rows g and g + 8; warp w < ks1 owns the
-  // latent tile w (columns 8w + 2t + e) and its Adam state ----
+  // latent tiles lt = w, w + TEAM, ... below ks1 (columns 8lt + 2t + e) and
+  // their Adam state ----
   const int g = lane >> 2, t = lane & 3;
   const bool owner = w < ks1;
   if (owner) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), col = 8 * w + 2 * t + (e & 1);
-      const int rl = base + row < B ? base + row : B - 1;
-      const bool ok = col < L;
-      const int at = rl * L + col, sat = row * ldz + col;
-      ZS[sat] = ok ? p.z0[at] : 0.f;
-      DS[sat] = ok ? p.d0[at] : 0.f;
-      MS[sat] = ok ? p.m0[at] : 0.f;
-      VS[sat] = ok ? p.v0[at] : 0.f;
-      TLS[sat] = ok ? p.tlat[at] : 0.f;
+    for (int i = 0; i < BD::KS1W; ++i) {
+      const int lt = w + TEAM * i;
+      if (lt >= ks1) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e >> 1), col = 8 * lt + 2 * t + (e & 1);
+        const int rl = base + row < B ? base + row : B - 1;
+        const bool ok = col < L;
+        const int at = rl * L + col, sat = row * ldz + col;
+        ZS[sat] = ok ? p.z0[at] : 0.f;
+        DS[sat] = ok ? p.d0[at] : 0.f;
+        MS[sat] = ok ? p.m0[at] : 0.f;
+        VS[sat] = ok ? p.v0[at] : 0.f;
+        TLS[sat] = ok ? p.tlat[at] : 0.f;
+      }
     }
   }
   team_sync(bar);
@@ -599,26 +660,32 @@ iter_block_kernel(const Params p, const Layout y) {
     float lt_row[2] = {0.f, 0.f};
     if (owner) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * w + 2 * t + (e & 1);
-        if (col < L) {
-          const float dz = (e >> 1 ? r1 : r0)[col] -
-                           TLS[(g + 8 * (e >> 1)) * ldz + col];
-          lt_row[e >> 1] += dz * dz;
+      for (int i = 0; i < BD::KS1W; ++i) {
+        const int lt = w + TEAM * i;
+        if (lt >= ks1) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * lt + 2 * t + (e & 1);
+          if (col < L) {
+            const float dz = (e >> 1 ? r1 : r0)[col] -
+                             TLS[(g + 8 * (e >> 1)) * ldz + col];
+            lt_row[e >> 1] += dz * dz;
+          }
         }
       }
     }
-    uint32_t gate1, gate2;
+    Gates<BD::NT1W> gate1;
+    Gates<BD::NT2W> gate2;
     {
       const int cnt = owned(nt1, w);
-      float h[NT1W][4];
+      float h[BD::NT1W][4];
       team_product<PASSES, false>(r0, r1, ks1, P1, ks1, w, cnt, h);
       gate1 = store_tiles(h, cnt, w, sb1, true, H1S, ld1);
     }
     team_sync(bar);
     {
       const int cnt = owned(nt2, w);
-      float h[NT2W][4];
+      float h[BD::NT2W][4];
       team_product<PASSES, false>(H1S + g * ld1, H1S + (g + 8) * ld1, nt1, P2,
                                   nt1, w, cnt, h);
       gate2 = store_tiles(h, cnt, w, sb2, true, H2S, ld2);
@@ -685,10 +752,8 @@ iter_block_kernel(const Params p, const Layout y) {
       const float wp = __ldg(p.w_pos + j * p.w_row_stride + bc * p.w_lane_stride);
       const float wr = __ldg(p.w_rot + j * p.w_row_stride + bc * p.w_lane_stride);
       float acc[3] = {0.f, 0.f, 0.f};
-      for (unsigned msk = sanc[j]; msk; msk &= msk - 1) {
-        const int a = __ffs(msk) - 1;
-        for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);
-      }
+      FOR_EACH_BIT(sanc, j, a,
+        for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);)
       float dpos[3];
       for (int c = 0; c < 3; ++c) dpos[c] = acc[c] + wd[c] - tp[c];
       part[0] += wp * (dpos[0] * dpos[0] + dpos[1] * dpos[1] +
@@ -748,10 +813,8 @@ iter_block_kernel(const Params p, const Layout y) {
     if (write_aux) {
       for (int j = jg; j < J; j += 2 * TEAM) {
         float acc[3] = {0.f, 0.f, 0.f};
-        for (unsigned msk = sanc[j]; msk; msk &= msk - 1) {
-          const int a = __ffs(msk) - 1;
-          for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);
-        }
+        FOR_EACH_BIT(sanc, j, a,
+          for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);)
         for (int c = 0; c < 3; ++c)
           p.a_pos[(static_cast<size_t>(b) * J + j) * 3 + c] = acc[c] + wd[c];
         for (int c = 0; c < 4; ++c)
@@ -784,10 +847,8 @@ iter_block_kernel(const Params p, const Layout y) {
     // subtree sums of the position grads, sent to the parents' world quats
     for (int j = jg > 0 ? jg : 2 * TEAM; j < J; j += 2 * TEAM) {
       float sub[3] = {0.f, 0.f, 0.f};
-      for (unsigned msk = sdesc[j]; msk; msk &= msk - 1) {
-        const int d = __ffs(msk) - 1;
-        for (int c = 0; c < 3; ++c) sub[c] += AT(GP, c, d);
-      }
+      FOR_EACH_BIT(sdesc, j, d,
+        for (int c = 0; c < 3; ++c) sub[c] += AT(GP, c, d);)
       float pw[4];
       world(spar[j], pw);
       const float off[3] = {soff[j * 3], soff[j * 3 + 1], soff[j * 3 + 2]};
@@ -803,10 +864,8 @@ iter_block_kernel(const Params p, const Layout y) {
     qconj(W, cW);
     for (int j = jg; j < J; j += 2 * TEAM) {
       float gw[4] = {AT(GW, 0, j), AT(GW, 1, j), AT(GW, 2, j), AT(GW, 3, j)};
-      for (unsigned msk = schild[j]; msk; msk &= msk - 1) {
-        const int ch = __ffs(msk) - 1;
-        for (int c = 0; c < 4; ++c) gw[c] += AT(CT, c, ch);
-      }
+      FOR_EACH_BIT(schild, j, ch,
+        for (int c = 0; c < 4; ++c) gw[c] += AT(CT, c, ch);)
       if (j == 0) {
         for (int c = 0; c < 4; ++c) gWp[c] += gw[c];
         continue;
@@ -852,7 +911,7 @@ iter_block_kernel(const Params p, const Layout y) {
     // ---------------- backward decoder ----------------
     {
       const int cnt = owned(nt2, w);
-      float gq[NT2W][4];
+      float gq[BD::NT2W][4];
       team_product<PASSES, true>(HG + g * ldh, HG + (g + 8) * ldh, nt3, P3,
                                  nt2, w, cnt, gq);
       apply_gates(gq, cnt, gate2);
@@ -861,16 +920,18 @@ iter_block_kernel(const Params p, const Layout y) {
     team_sync(bar);
     {
       const int cnt = owned(nt1, w);
-      float gq[NT1W][4];
+      float gq[BD::NT1W][4];
       team_product<PASSES, true>(G2S + g * ld2, G2S + (g + 8) * ld2, nt2, P2,
                                  nt1, w, cnt, gq);
       apply_gates(gq, cnt, gate1);
       store_tiles(gq, cnt, w, nullptr, false, G1S, ld1);
     }
     team_sync(bar);
-    float gz[1][4];
+    float gz[BD::KS1W][4];
     team_product<PASSES, true>(G1S + g * ld1, G1S + (g + 8) * ld1, nt1, P1,
-                               ks1, w, owner ? 1 : 0, gz);
+                               ks1, w,
+                               BD::KS1W == 1 ? (owner ? 1 : 0) : owned(ks1, w),
+                               gz);
     PHASE(PH_DEC_BWD)
 
     // ---------------- Adam, by the latent tiles' owners ----------------
@@ -883,22 +944,27 @@ iter_block_kernel(const Params p, const Layout y) {
         const float bc1 = 1.f - powf(B1, tf);
         const float bc2 = 1.f - powf(B2, tf);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * r + h;
-          const int col = 8 * w + 2 * t + h;
-          if (col >= L) continue;
-          const int sat = (g + 8 * r) * ldz + col;
-          const float z = ZS[sat];
-          const float dz = z - TLS[sat];
-          const float gr_ = gz[0][e] + p.lambda_t * (2.f * dz / L);
-          const float m = B1 * MS[sat] + C1 * gr_;
-          const float v = B2 * VS[sat] + C2 * gr_ * gr_;
-          MS[sat] = m;
-          VS[sat] = v;
-          const float m_hat = m / bc1;
-          const float v_hat = v / bc2;
-          DS[sat] = z;
-          ZS[sat] = z - p.lr_adam * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+        for (int i = 0; i < BD::KS1W; ++i) {
+          const int lt = w + TEAM * i;
+          if (lt >= ks1) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * r + h;
+            const int col = 8 * lt + 2 * t + h;
+            if (col >= L) continue;
+            const int sat = (g + 8 * r) * ldz + col;
+            const float z = ZS[sat];
+            const float dz = z - TLS[sat];
+            const float gr_ = gz[i][e] + p.lambda_t * (2.f * dz / L);
+            const float m = B1 * MS[sat] + C1 * gr_;
+            const float v = B2 * VS[sat] + C2 * gr_ * gr_;
+            MS[sat] = m;
+            VS[sat] = v;
+            const float m_hat = m / bc1;
+            const float v_hat = v / bc2;
+            DS[sat] = z;
+            ZS[sat] = z - p.lr_adam * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+          }
         }
       }
     }
@@ -907,19 +973,25 @@ iter_block_kernel(const Params p, const Layout y) {
   }
 #undef PHASE
 #undef AT
+#undef FOR_EACH_BIT
 
   if (owner) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = base + g + 8 * (e >> 1);
-      const int col = 8 * w + 2 * t + (e & 1);
-      if (col >= L || row >= B) continue;
-      const size_t at = static_cast<size_t>(row) * L + col;
-      const int sat = (g + 8 * (e >> 1)) * ldz + col;
-      p.z[at] = ZS[sat];
-      p.m[at] = MS[sat];
-      p.v[at] = VS[sat];
-      p.dec[at] = DS[sat];
+    for (int i = 0; i < BD::KS1W; ++i) {
+      const int lt = w + TEAM * i;
+      if (lt >= ks1) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = base + g + 8 * (e >> 1);
+        const int col = 8 * lt + 2 * t + (e & 1);
+        if (col >= L || row >= B) continue;
+        const size_t at = static_cast<size_t>(row) * L + col;
+        const int sat = (g + 8 * (e >> 1)) * ldz + col;
+        p.z[at] = ZS[sat];
+        p.m[at] = MS[sat];
+        p.v[at] = VS[sat];
+        p.dec[at] = DS[sat];
+      }
     }
   }
   if (tt < 16 && in_range) {
@@ -943,7 +1015,10 @@ int tiles8(int n) { return (n + 7) / 8; }
 int stride(int n, int r) { return n + ((r - n) % 32 + 32) % 32; }
 
 // The layout for these sizes, with as many teams (tiles) a block
-// (1..MAX_TEAMS) as give every SM one block; 0 teams if one does not fit.
+// (1..BD::TEAMS) as give every SM one block; 0 teams if one does not fit.
+// Without weights in shared memory, its constants start at 0 and o_p2,
+// o_p3 are offsets into the packed weights in device memory.
+template <class BD>
 Layout make_layout(const Params& p, int sms, int smem_limit) {
   Layout y{};
   y.ks1 = tiles8(p.L);
@@ -952,7 +1027,7 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
   y.nt3 = tiles8(p.H3);
   y.o_p2 = y.nt1 * y.ks1 * FRAG;
   y.o_p3 = y.o_p2 + y.nt2 * y.nt1 * FRAG;
-  y.o_b1 = y.o_p3 + y.nt3 * y.nt2 * FRAG;
+  y.o_b1 = BD::SMEM_W ? y.o_p3 + y.nt3 * y.nt2 * FRAG : 0;
   y.o_b2 = y.o_b1 + 8 * y.nt1;
   y.o_b3 = y.o_b2 + 8 * y.nt2;
   y.o_sq = y.o_b3 + 8 * y.nt3;
@@ -960,7 +1035,8 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
   y.o_off = y.o_mq + 4 * p.J;
   y.o_sdm = y.o_off + 3 * p.J;
   y.o_topo = y.o_sdm + 8;
-  y.o_team = (y.o_topo + 4 * p.J + 3) / 4 * 4;
+  const int nw = (p.J + 31) / 32;   // mask words a joint
+  y.o_team = (y.o_topo + (1 + 3 * nw) * p.J + 3) / 4 * 4;
   // ≡ 8 (mod 32): the A-fragment reads (rows g, g + 8; float2 at 2t) hit
   // distinct banks; the H3 / G3 rows ≡ 2, for the pair layout's column
   // reads (16 rows, two joints a column apart)
@@ -974,7 +1050,7 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
                   (joints > acts ? joints : acts);
   const int tiles = (p.B + TILE - 1) / TILE;
   int teams = (tiles + sms - 1) / sms;
-  teams = teams < 1 ? 1 : (teams > MAX_TEAMS ? MAX_TEAMS : teams);
+  teams = teams < 1 ? 1 : (teams > BD::TEAMS ? BD::TEAMS : teams);
   while (teams > 0 && (static_cast<size_t>(y.o_team) + static_cast<size_t>(
                            teams) * y.team_floats) * 4 >
                           static_cast<size_t>(smem_limit))
@@ -983,12 +1059,12 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
   return y;
 }
 
-template <int PASSES, bool TIMED>
+template <class BD, int PASSES, bool TIMED>
 int launch(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
-  if (p.J < 1 || p.J > MAXJ || p.L < 1 || p.L > MAXL || p.H1 < 1 ||
-      p.H1 > MAXH || p.H2 < 1 || p.H2 > MAXH || p.H3 != 4 * p.J + 3 ||
-      p.B < 1 || p.sync_k < 0)
+  if (p.J < 1 || p.J > BD::MAXJ || p.L < 1 || p.L > BD::MAXL || p.H1 < 1 ||
+      p.H1 > BD::MAXH || p.H2 < 1 || p.H2 > BD::MAXH ||
+      p.H3 != 4 * p.J + 3 || p.B < 1 || p.sync_k < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, smem_limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -998,18 +1074,18 @@ int launch(const void* params, void* stream) {
     err = cudaDeviceGetAttribute(
         &smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Layout y = make_layout(p, sms, smem_limit);
+  const Layout y = make_layout<BD>(p, sms, smem_limit);
   if (y.teams < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       (static_cast<size_t>(y.o_team) + static_cast<size_t>(y.teams) *
                                            y.team_floats) * sizeof(float);
-  err = cudaFuncSetAttribute(iter_block_kernel<PASSES, TIMED>,
+  err = cudaFuncSetAttribute(iter_block_kernel<BD, PASSES, TIMED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.B + TILE - 1) / TILE;
   const int grid = (tiles + y.teams - 1) / y.teams;
-  iter_block_kernel<PASSES, TIMED>
+  iter_block_kernel<BD, PASSES, TIMED>
       <<<grid, y.teams * TEAM_THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(p, y);
   return static_cast<int>(cudaGetLastError());
@@ -1024,18 +1100,43 @@ extern "C" int iter_block_tile_lanes() { return TILE; }
 // `params` points to a host Params struct filled by the wrapper (ctypes
 // Structure of the same layout).  Launches on `stream`; returns
 // cudaGetLastError().
+// The narrow build (J ≤ 32, L ≤ 32, H1/H2 ≤ 64).  `params` points to a
+// host Params struct filled by the wrapper (ctypes Structure of the same
+// layout).  Launches on `stream`; returns cudaGetLastError().
 extern "C" int iter_block(const void* params, void* stream) {
-  return launch<3, false>(params, stream);
+  return launch<Narrow, 3, false>(params, stream);
 }
 
 // The same kernel with its products in one TF32 pass: the control that
 // K1's tolerance must refuse.
 extern "C" int iter_block_tf32(const void* params, void* stream) {
-  return launch<1, false>(params, stream);
+  return launch<Narrow, 1, false>(params, stream);
 }
 
 // The same kernel reading the SM clock after each phase of each step into
 // `params->clocks` (CLOCK_SLOTS a warp: the phases; the last, the steps).
 extern "C" int iter_block_timed(const void* params, void* stream) {
-  return launch<3, true>(params, stream);
+  return launch<Narrow, 3, true>(params, stream);
+}
+
+// The general build (J ≤ 128, L ≤ 128, H1/H2 ≤ 272), its TF32 control and
+// its timed build, as above.
+extern "C" int iter_block_general(const void* params, void* stream) {
+  return launch<General, 3, false>(params, stream);
+}
+
+extern "C" int iter_block_general_tf32(const void* params, void* stream) {
+  return launch<General, 1, false>(params, stream);
+}
+
+extern "C" int iter_block_general_timed(const void* params, void* stream) {
+  return launch<General, 3, true>(params, stream);
+}
+
+// A build's limits (general = 0: the narrow build; else the general):
+// limits[0..2] = joints, latent dims, hidden widths.
+extern "C" void iter_block_limits(int general, int* limits) {
+  limits[0] = general ? General::MAXJ : Narrow::MAXJ;
+  limits[1] = general ? General::MAXL : Narrow::MAXL;
+  limits[2] = general ? General::MAXH : Narrow::MAXH;
 }

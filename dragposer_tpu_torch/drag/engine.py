@@ -30,6 +30,8 @@ rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).
 
 from __future__ import annotations
 
+import copy
+
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,6 +41,7 @@ from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops import fk, quat, temporal_fused
 from dragposer_tpu_torch.ops.topology import Skeleton
+from dragposer_tpu_torch.parallel.mesh import map_tree
 
 
 class DragHyper(NamedTuple):
@@ -631,6 +634,24 @@ class DragEngine:
         self.skeleton = skeleton
         self.hyper = hyper
         self.tparam = tparam
+        self._replica_models = {}
+
+    def replica(self, device) -> "DragEngine":
+        """The same engine on another device: every model tensor (the
+        folded decoder, K2's packed weights, the statistics) copied there
+        once for this engine's model, and kept; the hyperparameters are
+        this engine's at the call.  The data-parallel eval runs one a
+        device."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        src, model = self._replica_models.get(new.device, (None, None))
+        if src is not self.model:
+            model = map_tree(lambda x: x.to(new.device) if torch.is_tensor(x)
+                             else x, self.model)
+            self._replica_models[new.device] = (self.model, model)
+        new.model = model
+        new._replica_models = {}
+        return new
 
     def tensor(self, a, dtype=torch.float32):
         if torch.is_tensor(a):

@@ -6,11 +6,16 @@ inputs, same ``_OptCarry`` out.  On CUDA tensors it launches
 ``csrc/iter_block.cu`` (tiles of 16 lanes, 4 warps a tile, the decoder and
 its transpose on the tensor cores in 3xTF32, the sync_k loop inside the
 kernel, the gradient written by hand), which also writes the aux of each
-lane's last forward: no plain code runs.  On CPU tensors it runs the plain twin
-``fast_iter.run_block``, which rebuilds the aux with ``fast_iter.aux_at``
-as the JAX module does in XLA (``iter_kernel.py:359-368``).  ``COUNTS``
-(shared with ``fast_iter``) counts kernel launches, plain calls and aux
-rebuilds.
+lane's last forward: no plain code runs.  The kernel has two builds: the
+narrow one (``NARROW``: J, L, H1/H2 up to 32, 32, 64, its weights in shared
+memory) wherever a model fits it, else the general one (``GENERAL``: up
+to 128, 128, 272, its weights read from device memory); past that the
+wrapper raises before any launch.  On CPU tensors it runs the plain twin
+``fast_iter.run_block`` at any shape, which rebuilds the aux with
+``fast_iter.aux_at`` as the JAX module does in XLA
+(``iter_kernel.py:359-368``).  ``COUNTS`` (shared with ``fast_iter``)
+counts the narrow build's launches, plain calls and aux rebuilds;
+``GENERAL_COUNTS`` the general build's launches.
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ from dragposer_tpu_torch.drag import fast_iter
 from dragposer_tpu_torch.ops.temporal_fused import split_tf32
 
 COUNTS = fast_iter.COUNTS
-MAX_JOINTS = 32
-MAX_LATENT = 32
-MAX_HIDDEN = 64
+GENERAL_COUNTS = _build.KernelCounts("K1_general")
+NARROW = (32, 32, 64)      # the narrow build's J, L, H1/H2 limits
+GENERAL = (128, 128, 272)  # the general build's
 TILE_LANES = 16    # lanes of a tile (the M of mma.m16n8k8)
 TEAM_WARPS = 4     # warps that share a tile's work
 
@@ -49,8 +54,8 @@ class KernelContext(NamedTuple):
     sd: Any        # (3,)
     md: Any        # (3,)
     offs: Any      # (J, 3)
-    topo: Any      # (4, J) int32: parents (parents[j] < j), ancestor,
-                   # descendant and child masks
+    topo: Any      # (1 + 3W, J) int32: parents (parents[j] < j), then
+                   # the ancestor, descendant and child masks, W words each
     w_pos: Any     # (J, 1) or (J, B)
     w_rot: Any     # (J, 1) or (J, B)
     n_ee: Any      # (1,) or (B,)
@@ -88,22 +93,29 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
 
 
 def topology_masks(parents) -> np.ndarray:
-    """(3, J) bit masks of joints: row 0 the ancestors of j (root excluded,
-    j included: row j of the ancestor matrix A), row 1 its descendants (j
-    included: column j of A), row 2 its children other than the root."""
+    """(3W, J) bit masks of joints, W = ceil(J / 32) 32-bit words a mask
+    (joint a is bit a % 32 of word a // 32): rows 0..W-1 the ancestors of j
+    (root excluded, j included: row j of the ancestor matrix A), rows
+    W..2W-1 its descendants (j included: column j of A), rows 2W..3W-1 its
+    children other than the root.  At J ≤ 32, the rows anc, desc, child."""
     parents = np.asarray(parents, np.int64)
     J = len(parents)
-    anc = np.zeros(J, np.uint64)
+    anc = np.zeros((J, J), bool)
     for j in range(1, J):
-        anc[j] = anc[parents[j]] | np.uint64(1 << j)
-    desc = np.zeros(J, np.uint64)
-    child = np.zeros(J, np.uint64)
-    for j in range(J - 1, 0, -1):
-        desc[j] |= np.uint64(1 << j)
-        if parents[j] != 0:
-            desc[parents[j]] |= desc[j]
-        child[parents[j]] |= np.uint64(1 << j)
-    return np.stack([anc, desc, child]).astype(np.uint32)
+        anc[j] = anc[parents[j]]
+        anc[j, j] = True
+    child = np.zeros((J, J), bool)
+    child[parents[1:], np.arange(1, J)] = True
+    W = -(-J // 32)
+    pad = np.zeros((J, 32 * W - J), bool)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+
+    def words(m):   # (J, J) bool, row j the joints in j's mask → (W, J)
+        bits = np.concatenate((m, pad), axis=1).reshape(J, W, 32)
+        return np.ascontiguousarray((bits * weights).sum(-1).astype(
+            np.uint32).T)
+
+    return np.concatenate((words(anc), words(anc.T), words(child)))
 
 
 def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
@@ -112,8 +124,6 @@ def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
     if parents[0] != 0 or np.any(parents[1:] >= np.arange(1, J)):
         raise ValueError("K1 needs parents in topological order "
                          "(parents[j] < j)")
-    if J > MAX_JOINTS:
-        raise ValueError(f"K1 takes J ≤ {MAX_JOINTS}, got {J}")
     dev = ctx.W1.device
     c = lambda a: a.contiguous().to(torch.float32)  # noqa: E731
     W1, W2, W3 = c(ctx.W1), c(ctx.W2), c(ctx.W3p)
@@ -169,32 +179,59 @@ class _Params(ctypes.Structure):
     )
 
 
+_ENTRIES = ("iter_block", "iter_block_tf32", "iter_block_timed")
+
+
 def _declare(lib):
-    for entry in (lib.iter_block, lib.iter_block_tf32, lib.iter_block_timed):
-        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        entry.restype = ctypes.c_int
+    for name in _ENTRIES:
+        for entry in (getattr(lib, name),
+                      getattr(lib, name.replace("block", "block_general"))):
+            entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            entry.restype = ctypes.c_int
     lib.iter_block_params_size.restype = ctypes.c_int
     lib.iter_block_tile_lanes.restype = ctypes.c_int
+    lib.iter_block_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.iter_block_limits.restype = None
     if lib.iter_block_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("iter_block Params layout does not match")
     if lib.iter_block_tile_lanes() != TILE_LANES:
         raise RuntimeError("iter_block tile width does not match")
+    for general, want in ((0, NARROW), (1, GENERAL)):
+        got = (ctypes.c_int * 3)()
+        lib.iter_block_limits(general, got)
+        if tuple(got) != want:
+            raise RuntimeError(f"iter_block limits {tuple(got)} != {want}")
 
 
 def _library():
     return _build.load("iter_block", _declare)
 
 
+def build_for(J: int, L: int, H1: int, H2: int) -> str:
+    """The build a kernel launch takes at these sizes: ``"narrow"`` where
+    they fit ``NARROW``, else ``"general"`` where they fit ``GENERAL``;
+    past that a ``ValueError`` naming the limit (the plain twin on the CPU
+    takes any size)."""
+    for name, (mj, ml, mh) in (("narrow", NARROW), ("general", GENERAL)):
+        if J <= mj and L <= ml and max(H1, H2) <= mh:
+            return name
+    mj, ml, mh = GENERAL
+    raise ValueError(f"K1 takes J ≤ {mj}, L ≤ {ml}, hidden ≤ {mh} (its "
+                     f"general build's limits); got {J}, {L}, {H1}/{H2}")
+
+
+def _build_of(kctx: KernelContext, opt: eng._OptCarry) -> str:
+    return build_for(kctx.topo.shape[1], opt.latent.shape[1],
+                     kctx.W1.shape[0], kctx.W2.shape[0])
+
+
 def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
                   global_rot, tposT, trotT, target_latent) -> None:
-    """What the kernel takes; checked on every device, so the CPU tests
-    hold the callers to it too."""
+    """The layouts the kernel takes; checked on every device, so the CPU
+    tests hold the callers to them too (the size limits are checked only
+    where a kernel launches: :func:`build_for`)."""
     B, L = opt.latent.shape
     J = kctx.topo.shape[1]
-    H1, H2 = kctx.W1.shape[0], kctx.W2.shape[0]
-    if J > MAX_JOINTS or L > MAX_LATENT or max(H1, H2) > MAX_HIDDEN:
-        raise ValueError(f"K1 takes J ≤ {MAX_JOINTS}, L ≤ {MAX_LATENT}, "
-                         f"hidden ≤ {MAX_HIDDEN}; got {J}, {L}, {H1}/{H2}")
     if kctx.W3.shape[0] != 4 * J + 3:
         raise ValueError("W3 must have 4J+3 rows")
     dev = opt.latent.device
@@ -207,7 +244,8 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
                   for w in (kctx.W1, kctx.W2, kctx.W3))
     if kctx.frags.shape != (n_frags,):
         raise ValueError("frags must be pack_fragments of W1, W2, W3")
-    _build.check_tensor("topo", kctx.topo, (4, J), dev, i32)
+    _build.check_tensor("topo", kctx.topo, (1 + 3 * -(-J // 32), J), dev,
+                        i32)
     if kctx.w_pos.shape[1] not in (1, B) or kctx.w_pos.shape != (
             kctx.w_rot.shape) or kctx.w_pos.shape[0] != J:
         raise ValueError("w_pos/w_rot must be (J, 1) or (J, B)")
@@ -228,8 +266,11 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
 def _launch(entry: str, kctx: KernelContext, hyper: eng.DragHyper,
             sync_k: int, opt: eng._OptCarry, lane_active, global_rot, tposT,
             trotT, target_latent, clocks=None) -> eng._OptCarry:
-    """Fill ``Params`` (inputs already checked), launch ``entry`` on the
+    """Fill ``Params`` (inputs already checked), launch ``entry`` of the
+    build the sizes take (:func:`build_for`; raises past its limits) on the
     current stream, and return the new carry with the kernel's aux."""
+    if _build_of(kctx, opt) == "general":
+        entry = entry.replace("block", "block_general")
     B, L = opt.latent.shape
     J = kctx.topo.shape[1]
     H1, H2, H3 = kctx.W1.shape[0], kctx.W2.shape[0], kctx.W3.shape[0]
@@ -291,9 +332,10 @@ def run_block_fused(ctx: fast_iter.FastContext, kctx: KernelContext,
     if not opt.latent.is_cuda:
         return fast_iter.run_block(ctx, hyper, sync_k, opt, lane_active,
                                    state, tposT, trotT, target_latent)
+    general = _build_of(kctx, opt) == "general"
     out = _launch("iter_block", kctx, hyper, sync_k, opt, lane_active,
                   state.global_rot, tposT, trotT, target_latent)
-    COUNTS.kernel += 1
+    (GENERAL_COUNTS if general else COUNTS).kernel += 1
     return out
 
 

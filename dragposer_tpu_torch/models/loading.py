@@ -1,10 +1,13 @@
 """Model-directory loading (port of ``dragposer_tpu/models/loading.py``),
 and the function that carries weights across from the JAX package.
 
-The port reads the same native ``.npz`` files as the JAX package; the
-reference ``.pt`` import is not ported yet.  Parameter trees keep the JAX
-package's structure (nested dicts and lists, torch ``(out, in)`` weight
-convention), with numpy leaves on the host and torch tensors on the device.
+A model directory is interchangeable with the reference's
+(``models/model_<name>_<data>/``): the native ``generator.npz`` /
+``temporal.npz`` first, as the JAX package reads them, else the
+reference's ``generator.pt`` + ``data.pt`` / ``temporal.pt``
+(``models/torch_import.py``).  Parameter trees keep the JAX package's
+structure (nested dicts and lists, torch ``(out, in)`` weight convention),
+with numpy leaves on the host and torch tensors on the device.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dragposer_tpu_torch.models import checkpoint
+from dragposer_tpu_torch import config as cfg
+from dragposer_tpu_torch.models import checkpoint, torch_import
 
 
 def tree_to_torch(tree: Any, device, dtype=torch.float32) -> Any:
@@ -32,21 +36,37 @@ def tree_to_torch(tree: Any, device, dtype=torch.float32) -> Any:
     return torch.as_tensor(np.asarray(tree), dtype=dtype, device=device)
 
 
-def load_generator(model_dir: str) -> Tuple[Dict, Dict, Dict]:
-    """Returns ``(vae_params, means, stds)`` as numpy trees."""
-    path = os.path.join(model_dir, "generator.npz")
-    if not os.path.exists(path):
+def load_generator(model_dir: str, parents=None,
+                   param=None) -> Tuple[Dict, Dict, Dict]:
+    """Returns ``(vae_params, means, stds)`` as numpy trees; prefers the
+    native format.  The ``.pt`` files are checked against the statics of
+    ``parents`` under ``param`` (default ``config.VAE_PARAM``), so they
+    need the skeleton's parents."""
+    native = os.path.join(model_dir, "generator.npz")
+    if os.path.exists(native):
+        params, extra = checkpoint.load(native)
+        return params, extra["means"], extra["stds"]
+    if not os.path.exists(os.path.join(model_dir, "generator.pt")):
         raise FileNotFoundError(
-            f"{path}: the port reads native .npz checkpoints only")
-    params, extra = checkpoint.load(path)
-    return params, extra["means"], extra["stds"]
+            f"{model_dir}: no generator.npz, nor the reference's "
+            "generator.pt")
+    if parents is None:
+        raise ValueError(f"{model_dir} has no generator.npz; reading its "
+                         "generator.pt needs the skeleton's parents")
+    return torch_import.load_generator(model_dir, parents,
+                                       param or cfg.VAE_PARAM)
 
 
-def load_temporal(model_dir: str) -> Optional[Tuple[Dict, np.ndarray,
-                                                    np.ndarray]]:
-    """Returns ``(params, means_latent, stds_latent)``, or None if absent."""
-    path = os.path.join(model_dir, "temporal.npz")
-    if not os.path.exists(path):
-        return None
-    params, extra = checkpoint.load(path)
-    return params, extra["means_latent"], extra["stds_latent"]
+def load_temporal(model_dir: str, param=None) -> Optional[
+        Tuple[Dict, np.ndarray, np.ndarray]]:
+    """Returns ``(params, means_latent, stds_latent)``, or None if absent;
+    prefers the native format (``param``: default
+    ``config.TEMPORAL_PARAM``, for ``temporal.pt``)."""
+    native = os.path.join(model_dir, "temporal.npz")
+    if os.path.exists(native):
+        params, extra = checkpoint.load(native)
+        return params, extra["means_latent"], extra["stds_latent"]
+    if os.path.exists(os.path.join(model_dir, "temporal.pt")):
+        return torch_import.load_temporal(model_dir,
+                                          param or cfg.TEMPORAL_PARAM)
+    return None

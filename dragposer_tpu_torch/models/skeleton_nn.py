@@ -1,9 +1,10 @@
 """Skeleton-aware network blocks (port of ``dragposer_tpu/models/skeleton_nn.py``).
 
 The skeleton convolution is a dense 1-D convolution whose weight is masked
-to per-joint graph neighbourhoods; pooling and unpooling are constant
-matrices from the topology.  The checkpoints use kernel size 1, so every
-block is one masked matmul; only that case is applied.  Parameters are
+to per-joint graph neighbourhoods, over time with reflect padding and a
+stride; pooling and unpooling are constant matrices from the topology.
+The checkpoints use kernel size 1 and stride 1, where every block is one
+masked matmul.  Parameters are
 plain dicts of tensors in the torch ``(out, in)`` convention.  Init draws
 from a CPU ``torch.Generator`` with the JAX package's distributions
 (torch's kaiming_uniform(a=√5) restricted to each joint's neighbourhood:
@@ -53,12 +54,18 @@ def init_linear(gen: torch.Generator, in_dim: int, out_dim: int,
     return {"w": w, "b": _uniform(gen, (out_dim,), bound)}
 
 
-def skeleton_conv(x, params, mask):
-    """Masked kernel-1 conv.  x: (B, C_in, T) → (B, C_out, T)."""
-    if params["w"].shape[-1] != 1:
-        raise NotImplementedError("only kernel size 1 is ported")
-    w = (params["w"] * mask)[:, :, 0]
-    return torch.einsum("oc,bct->bot", w, x) + params["b"][None, :, None]
+def skeleton_conv(x, params, mask, padding: int = 0, stride: int = 1):
+    """Masked conv1d with reflect padding.  x: (B, C_in, T) → (B, C_out,
+    T'), T' = (T + 2·padding − kernel) // stride + 1."""
+    w = params["w"] * mask
+    b = params["b"][None, :, None]
+    if w.shape[-1] == 1 and padding == 0 and stride == 1:
+        return torch.einsum("oc,bct->bot", w[:, :, 0], x) + b
+    if padding > 0:
+        # numpy's (and jnp.pad's) reflect indices, a length-1 axis included
+        idx = np.pad(np.arange(x.shape[-1]), padding, mode="reflect")
+        x = x[..., torch.as_tensor(idx, device=x.device)]
+    return torch.nn.functional.conv1d(x, w, stride=stride) + b
 
 
 def pool(x, pool_mat):

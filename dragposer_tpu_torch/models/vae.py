@@ -45,6 +45,8 @@ class VAEStatics:
     kernel: int
     latent_dim: int
     n_joints: int
+    padding: int = 0     # the convolutions' reflect padding, (kernel-1)//2
+    stride: int = 1      # the encoder convolutions' stride
 
 
 def _levels(parents, decoder: bool):
@@ -90,7 +92,8 @@ def build_statics(parents, param) -> VAEStatics:
         enc_masks=f32(enc_masks), enc_pools=f32(enc_pools),
         dec_masks=f32(dec_masks), dec_unpools=f32(dec_unpools),
         kernel=kernel, latent_dim=param["latent_dim"],
-        n_joints=len(parents),
+        n_joints=len(parents), padding=(kernel - 1) // 2,
+        stride=param["stride_encoder_conv"],
     )
 
 
@@ -135,7 +138,8 @@ def encode(params, statics: VAEStatics, x):
     for l in range(N_LAYERS):
         mask = torch.as_tensor(statics.enc_masks[l], device=x.device)
         pool = torch.as_tensor(statics.enc_pools[l], device=x.device)
-        h = nn.skeleton_conv(h, params["convs"][l], mask)
+        h = nn.skeleton_conv(h, params["convs"][l], mask, statics.padding,
+                             statics.stride)
         h = nn.leaky_relu(nn.pool(h, pool))
     h = h.reshape(h.shape[0], -1)
     return nn.linear(h, params["f_mu"]), nn.linear(h, params["f_logvar"])
@@ -171,7 +175,7 @@ def decode(params, statics: VAEStatics, z, mean_dqs, std_dqs):
         h = nn.unpool(h, torch.as_tensor(statics.dec_unpools[l],
                                          device=z.device))
         h = nn.skeleton_conv(h, params["convs"][l], torch.as_tensor(
-            statics.dec_masks[l], device=z.device))
+            statics.dec_masks[l], device=z.device), statics.padding, 1)
         if l != N_LAYERS - 1:
             h = nn.leaky_relu(h)
     return _unit_quats(h, mean_dqs, std_dqs)

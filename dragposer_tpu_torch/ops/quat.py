@@ -43,8 +43,17 @@ def inverse(q):
     return conjugate(q) / torch.sum(q * q, dim=-1, keepdim=True)
 
 
-def normalize(q):
-    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+def normalize(q, eps: float = 0.0):
+    """Unit-normalize along the last axis, the norm clamped to ``eps`` from
+    below when ``eps`` is given (reference: ``quat_torch.normalize``)."""
+    n = torch.linalg.norm(q, dim=-1, keepdim=True)
+    if eps:
+        n = torch.clamp(n, min=eps)
+    return q / n
+
+
+def dot(q1, q2):
+    return torch.sum(q1 * q2, dim=-1)
 
 
 def mul_vec(q, v):
@@ -81,6 +90,31 @@ def to_matrix(q):
         ),
         dim=-2,
     )
+
+
+def from_matrix(m):
+    """3×3 rotation matrix → unit quaternion (branchless Shepperd: the
+    numerically strongest of four constructions)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                      1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) * 0.5
+    d = 4.0 * qw
+    c0 = torch.stack([qw[..., 0], (m21 - m12) / d[..., 0],
+                      (m02 - m20) / d[..., 0], (m10 - m01) / d[..., 0]], -1)
+    c1 = torch.stack([(m21 - m12) / d[..., 1], qw[..., 1],
+                      (m01 + m10) / d[..., 1], (m02 + m20) / d[..., 1]], -1)
+    c2 = torch.stack([(m02 - m20) / d[..., 2], (m01 + m10) / d[..., 2],
+                      qw[..., 2], (m12 + m21) / d[..., 2]], -1)
+    c3 = torch.stack([(m10 - m01) / d[..., 3], (m02 + m20) / d[..., 3],
+                      (m12 + m21) / d[..., 3], qw[..., 3]], -1)
+    choice = torch.argmax(qw, dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)
+    q = torch.take_along_dim(cands, choice[..., None, None], dim=-2)[..., 0, :]
+    return normalize(q)
 
 
 def order_to_indices(order) -> np.ndarray:

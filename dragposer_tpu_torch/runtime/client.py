@@ -79,9 +79,9 @@ class DaemonClient:
                    branch_survivors: int = 8) -> dict:
         """Run a batched offline reconstruction job on the daemon's warm
         engine; returns ``{"results": [{file, mpjpe, mpeepe}...],
-        "elapsed_s": ...}``.  ``mesh`` (``eval_drag --batch --mesh``) is
-        not ported: the daemon answers a request that carries it with an
-        error."""
+        "elapsed_s": ...}``.  ``mesh``: the local devices the lanes are
+        cut over (``eval_drag --batch --mesh``; default: one, the
+        daemon's)."""
         req = {
             "model_dir": model_dir, "skeleton": skeleton, "files": files,
             "config": config, "use_temporal": use_temporal,

@@ -99,7 +99,7 @@ class RealtimeSession:
             raise RuntimeError("call set_reference_skeleton first")
         self._model_dir = os.path.abspath(model_dir)
         self._params, self._means, self._stds = loading.load_generator(
-            model_dir)
+            model_dir, self.skeleton.parents, cfg.VAE_PARAM)
         temporal = loading.load_temporal(model_dir)
         if temporal is None:
             latent_dim = cfg.VAE_PARAM["latent_dim"]

@@ -159,8 +159,9 @@ def _eval_batch(req: dict, device=None) -> dict:
     BVH paths), ``config`` (builtin name or config-JSON path, default
     6_trackers), ``use_temporal`` (default true), ``max_frames`` (optional),
     ``downsample_gt`` (default 1), ``save_dir`` (default "data"),
-    ``restarts``, ``branch_every``, ``branch_sigma``, ``branch_survivors``.
-    ``mesh`` is refused: the port has no ``eval_drag --mesh`` yet.
+    ``restarts``, ``branch_every``, ``branch_sigma``, ``branch_survivors``,
+    ``mesh`` (local devices the lanes are cut over, as ``eval_drag
+    --mesh``; default 1).
     """
     from dragposer_tpu_torch.cli.eval_drag import (build_engine,
                                                    evaluate_batched,
@@ -169,11 +170,6 @@ def _eval_batch(req: dict, device=None) -> dict:
     from dragposer_tpu_torch.io.bvh import BVH
     from dragposer_tpu_torch.ops.topology import Skeleton
 
-    if req.get("mesh") is not None:
-        raise NotImplementedError(
-            "eval_batch: 'mesh' asks for eval_drag --mesh (data-parallel "
-            "lanes over several devices), which the PyTorch port does not "
-            "have yet")
     device = resolve_device(device)
     key = (req["model_dir"], req.get("config", "6_trackers"),
            bool(req.get("use_temporal", True)), req["skeleton"])
@@ -202,6 +198,7 @@ def _eval_batch(req: dict, device=None) -> dict:
                 save_dir=req.get("save_dir", "data"),
                 downsample_gt=int(req.get("downsample_gt", 1)),
                 restarts=int(req.get("restarts", 1)),
+                mesh_devices=int(req.get("mesh") or 1),
                 branch_every=int(req.get("branch_every", 0)),
                 branch_sigma=float(req.get("branch_sigma", 0.25)),
                 branch_survivors=int(req.get("branch_survivors", 8)),

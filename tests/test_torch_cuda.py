@@ -16,7 +16,9 @@ against the CPU; phase [15]'s anchor checks: ``engine.run`` on the
 card against the CPU (K2 alone) and ``run_batch`` against the pipelined
 path (K1 + K2); K2 at the realtime rollouts' lengths (16 and 30 decoder
 steps) and phases [16]-[17] at small sizes: a ``RealtimeSession`` and a
-``RealtimeBatch`` frame on the card against the CPU.
+``RealtimeBatch`` frame on the card against the CPU; K1's general build
+on chain and latent-48 models (up to its limits: 128 joints, latent 128)
+and its refusal past them, and phases [19]-[21] at small sizes.
 """
 
 import pytest
@@ -343,4 +345,64 @@ def test_realtime_session_card_matches_cpu(engines):
 def test_realtime_batch_frame_card_matches_cpu(engines):
     r = chip_smoke.realtime_batch_phase(
         chip_smoke.clip_path(chip_smoke.SEED), engines[2], n=16, frames=4)
+    assert r["ok"], r
+
+
+# K1's general build (models past the narrow build's J ≤ 32, L ≤ 32,
+# hidden ≤ 64): small batches of the chain and latent-48 models, with the
+# general build's first-step knife lanes (chip_smoke.k1_agreement).
+@pytest.mark.parametrize("n_joints,latent", [(33, 24), (64, 24), (22, 48),
+                                             (128, 128)])
+@pytest.mark.parametrize("B", [17, 1000])
+def test_k1_general_build_matches_plain(engines, n_joints, latent, B):
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    engine = chip_smoke.wide_engine(n_joints, latent)[0]
+    knife = chip_smoke.k1_knife_lanes(engine, B)
+    before = iter_kernel.GENERAL_COUNTS.kernel
+    for sync_k in (1, 24):
+        r = chip_smoke.check_k1(engine, B, sync_k, timed=False,
+                                control=sync_k == 1 and B == 1000,
+                                knife=knife)
+        assert r["build"] == "general" and r["ok"], r
+        assert r.get("tf32_control_refused", True), r
+    assert iter_kernel.GENERAL_COUNTS.kernel > before
+
+
+def test_k1_general_build_refuses_past_its_limits(engines):
+    engine = chip_smoke.wide_engine(130, 24)[0]
+    args = chip_smoke.k1_inputs(engine, 4)
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    with pytest.raises(ValueError, match="general build"):
+        iter_kernel.run_block_fused(args[0], args[1], engine.hyper, 1,
+                                    *args[2:])
+
+
+def test_wide_path_card_matches_cpu(engines):
+    """Phase [19] at a small size: the pipelined path at latent 48 on the
+    general build, and the card against the CPU at one step a frame."""
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    bvh = engines[2]
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    r = chip_smoke.wide_path(bvh, parents, Skeleton.build(
+        parents, offsets, bvh.names), B=64, T=24)
+    assert r["ok"], r
+
+
+def test_eval_mesh_one_is_the_plain_run(engines, tmp_path):
+    r = chip_smoke.mesh_cli_runs(str(tmp_path))
+    assert r["ok"], r
+
+
+def test_pt_model_dir_runs_on_the_card(engines, tmp_path):
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    bvh = engines[2]
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    r = chip_smoke.pt_round_trip(bvh, parents, Skeleton.build(
+        parents, offsets, bvh.names), work_dir=str(tmp_path))
     assert r["ok"], r

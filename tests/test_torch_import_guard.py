@@ -48,8 +48,24 @@ def test_sources_found():
                    "runtime/capi.py", "runtime/server.py",
                    "runtime/client.py", "client/math.py",
                    "client/retarget.py", "client/driver.py",
-                   "cli/unity_server.py"):
+                   "cli/unity_server.py", "models/torch_import.py",
+                   "cli/import_checkpoint.py", "parallel/mesh.py",
+                   "parallel/distributed.py", "client/playback.py",
+                   "client/vr.py", "cli/interactive.py", "cli/visualize.py"):
         assert ROOT / "dragposer_tpu_torch" / module in SOURCES
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The port has a module for every module of the JAX package; its own
+    extras are the kernel build and the device choice."""
+    def modules(pkg):
+        return {str(p.relative_to(ROOT / pkg))
+                for p in (ROOT / pkg).rglob("*.py")}
+
+    jax_side, port = modules("dragposer_tpu"), modules("dragposer_tpu_torch")
+    assert jax_side - port == set()
+    assert port - jax_side == {"_build.py", "_device.py"}
+    assert (ROOT / "dragposer_tpu_torch" / "client" / "viewer.html").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES,

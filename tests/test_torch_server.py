@@ -11,7 +11,8 @@ and its thread-safe kernel loading (``_build.load``), on the CPU.
   coalescing, error replies that leave it running, handles of a closed
   connection destroyed, ``OP_EVAL_BATCH`` against a direct
   ``evaluate_batched`` (the same arithmetic in two processes, one thread
-  each: rtol 1e-6), ``mesh`` refused, and the native smoke client
+  each: rtol 1e-6), ``mesh`` served up to the daemon's local devices and
+  refused past them, and the native smoke client
   (``native/``, built with ``g++``; skipped without it).
 """
 
@@ -517,13 +518,22 @@ def test_daemon_eval_batch_matches_direct_call(daemon):
 
 
 def test_daemon_refuses_mesh(daemon):
+    """``mesh`` as the JAX daemon takes it (``eval_drag --mesh``): a mesh
+    of the daemon's one local device gives the run without it; a mesh
+    past its local devices is refused with an error naming ``--mesh``, and
+    the daemon keeps running."""
     from dragposer_tpu_torch.runtime.client import DaemonClient, DaemonError
 
     sock, proc, files, work = daemon
     with DaemonClient(sock, timeout=600) as c:
         with pytest.raises(DaemonError, match="--mesh"):
             c.eval_batch(MODEL_DIR, files[0], files[:1], max_frames=4,
-                         save_dir=str(work), mesh=1)
+                         save_dir=str(work), mesh=2)
+        one = c.eval_batch(MODEL_DIR, files[0], files[:1], max_frames=4,
+                           save_dir=str(work), mesh=1)
+        plain = c.eval_batch(MODEL_DIR, files[0], files[:1], max_frames=4,
+                             save_dir=str(work))
+    assert one["results"] == plain["results"]
     assert proc.poll() is None
 
 
