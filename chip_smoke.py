@@ -119,9 +119,18 @@ printing its own line (any failure exits nonzero):
     ``cli.import_checkpoint`` to ``.npz`` files equal to the example's,
     and an engine built from the ``.pt`` directory computing the example
     engine's pipelined batch exactly;
-22. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
-    summed over [5], [15] and [16]-[18], the general build's from [19]);
-    the last line is the ``ok`` JSON.  SM and memory clocks are sampled
+22. the port's native layer (``dragposer_tpu_torch/native/``, built with
+    ``g++``): a host like Unity's (``native/probe.cpp``, the library opened
+    ``RTLD_LOCAL``) through the embedded ABI on the card over 120 frames of
+    the main clip, held to ``runtime.capi`` in this process (1e-5), with
+    K2's library removed first so that the host process builds it; the
+    session's device, the card and K2's launches read in the embedded
+    interpreter; frame latency beside [16]'s; then the socket client with
+    no daemon listening, which starts the port's daemon (its command line
+    read from ``/proc``), held to the same, the daemon ended here;
+23. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
+    summed over [5], [15], [16]-[18] and (K2) [22], the general build's
+    from [19]); the last line is the ``ok`` JSON.  SM and memory clocks are sampled
     beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
@@ -3552,6 +3561,412 @@ def daemon_phase(skeleton_path: str, bvh, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# The port's native layer: the embedded C ABI and the socket client, driven
+# by a host like Unity's (shared with tests/test_torch_native.py on the CPU)
+# ---------------------------------------------------------------------------
+
+T_NATIVE = 120          # frames of each native run (2 windows of 60)
+NATIVE_TOL = 1e-5       # the host's frames against in-process capi, card
+NATIVE_WORK_DIR = os.path.join(WORK_DIR, "native")
+PORT_NATIVE = os.path.join(HERE, "dragposer_tpu_torch", "native")
+
+
+def build_probe(out_dir: str) -> str:
+    """``dragposer_tpu_torch/native/probe.cpp`` built with ``g++`` into
+    ``out_dir/dragposer_probe``: it links no library of the port, it
+    opens one with ``dlopen``."""
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "dragposer_probe")
+    subprocess.run(["g++", "-std=c++17", "-O2", "-pthread", "-I" + PORT_NATIVE,
+                    "-o", out, os.path.join(PORT_NATIVE, "probe.cpp"), "-ldl"],
+                   check=True, capture_output=True, text=True, timeout=300)
+    return out
+
+
+def build_smoke_against(kind: str, out_dir: str) -> tuple:
+    """``native/smoke_main.cpp``, unchanged, compiled against the port's
+    ``dragposer_abi.h`` and linked to ``_build.native_library(kind)``:
+    the drop-in proof.  A ``#include "..."`` looks first in the including
+    file's own directory, which holds the JAX package's header, so the
+    file is compiled from a byte-for-byte copy in ``out_dir``; ``g++ -H``
+    lists the headers read.  Returns (binary, the ABI headers read)."""
+    from dragposer_tpu_torch import _build
+
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "smoke_main.cpp")
+    shutil.copyfile(os.path.join(HERE, "native", "smoke_main.cpp"), src)
+    lib = _build.native_library(kind)
+    out = os.path.join(out_dir, f"dragposer_smoke_{kind}")
+    done = subprocess.run(["g++", "-std=c++17", "-O2", "-H", "-I" + PORT_NATIVE,
+                           "-o", out, src, str(lib),
+                           "-Wl,-rpath," + str(lib.parent)],
+                          check=True, capture_output=True, text=True,
+                          timeout=300)
+    headers = [ln.lstrip(". ") for ln in done.stderr.splitlines()
+               if ln.endswith("dragposer_abi.h")]
+    return out, headers
+
+
+def write_probe_targets(path: str, bvh, frames: int = T_NATIVE,
+                        config: str = "6_trackers") -> None:
+    """The probe's targets file (``probe.cpp``): ``config``'s mask and
+    weights, the clip's first root position and rotation, then ``frames``
+    frames of the masked joints' world positions less the clip's root one
+    frame before, and their rotations; little-endian float32."""
+    from dragposer_tpu_torch import config as cfg
+
+    wp, wq = clip_trackers(bvh)
+    c = cfg.BUILTIN_CONFIGS[config]
+    mask = c.mask_array()
+    idx = np.nonzero(mask)[0]
+    per_frame = [np.concatenate(((wp[f, idx] - wp[f - 1, 0]).ravel(),
+                                 wq[f, idx].ravel()))
+                 for f in range(1, frames + 1)]
+    np.concatenate([mask, c.weights_array().ravel(), wp[0, 0], wq[0, 0],
+                    *per_frame]).astype("<f4").tofile(path)
+
+
+def read_probe_targets(path: str, n_joints: int) -> dict:
+    """A targets file as the probe reads it."""
+    data = np.fromfile(path, "<f4")
+    j = n_joints
+    mask = data[:j]
+    e = int(np.count_nonzero(mask))
+    frames = data[3 * j + 7:].reshape(-1, 7 * e)
+    return {"mask": mask, "weights": data[j:3 * j], "root": data[3 * j:3 * j + 3],
+            "rot": data[3 * j + 3:3 * j + 7],
+            "pos": frames[:, :3 * e].reshape(-1, e, 3),
+            "quat": frames[:, 3 * e:].reshape(-1, e, 4)}
+
+
+def capi_frames(targets: str, skeleton_path: str, device,
+                model_dir: str = MODEL_DIR) -> tuple:
+    """The probe's lifecycle through ``runtime.capi`` in this process, fed
+    the same targets as bytes: (frames (N, 4J + 3) float32, seconds a
+    frame)."""
+    import torch
+
+    from dragposer_tpu_torch.runtime import capi
+
+    h = capi.init(device)
+    try:
+        j = capi.set_reference_skeleton(h, skeleton_path)
+        capi.load_models(h, model_dir)
+        t = read_probe_targets(targets, j)
+        e = capi.set_mask_and_weights(h, t["mask"].tobytes(),
+                                      t["weights"].tobytes())
+        root = [float(x) for x in t["root"]]
+        capi.init_drag_model(h, *root, *[float(x) for x in t["rot"]])
+        capi.set_optim_params(h, *np.float32([1e-4, 0.01]).tolist(), 10,
+                              float(np.float32(0.01)))
+        capi.set_lambdas(h, 1.0, float(np.float32(0.02)), 60)
+        capi.set_global_pos(h, *root)
+        out, seconds = [], []
+        for pos, quat in zip(t["pos"], t["quat"]):
+            t0 = time.perf_counter()
+            out.append(np.frombuffer(capi.drag_pose(
+                h, pos.tobytes(), quat.tobytes(), e), "<f4"))
+            seconds.append(time.perf_counter() - t0)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return np.stack(out), seconds
+    finally:
+        capi.destroy(h)
+
+
+def capi_repeatability(targets: str, skeleton_path: str, device="cuda"
+                       ) -> dict:
+    """The probe's lifecycle through ``capi`` twice in this process on the
+    same targets: each frame's max abs difference between the two runs,
+    the first frame that differs at all and the first past
+    ``NATIVE_TOL``."""
+    with contextlib.chdir(NATIVE_WORK_DIR):   # capi's session log
+        a, _ = capi_frames(targets, skeleton_path, device)
+        b, _ = capi_frames(targets, skeleton_path, device)
+    err = np.abs(a - b).max(axis=1)
+    return {"max_abs_err": float(err.max()),
+            "first_frame_differing": (int(np.argmax(err > 0))
+                                      if (err > 0).any() else None),
+            "first_frame_over_tol": (int(np.argmax(err > NATIVE_TOL))
+                                     if (err > NATIVE_TOL).any() else None),
+            "frame_0_err": float(err[0]), "frames": int(err.size)}
+
+
+def first_nondeterministic_op(targets: str, skeleton_path: str,
+                              device="cuda"):
+    """``init_drag_model`` and one frame of two fresh ``capi`` sessions,
+    every aten op recorded (``TorchDispatchMode``: the op and digests of
+    its tensor inputs and outputs; the outputs of ``empty`` ops, memory
+    never written, left out): the first op whose inputs are equal in both
+    runs and whose outputs differ, as ``(index, op)``, or None."""
+    import hashlib
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from dragposer_tpu_torch.runtime import capi
+
+    def digests(tree):
+        return [hashlib.sha1(x.detach().contiguous().cpu().numpy()
+                             .tobytes()).hexdigest()
+                for x in tree_flatten(tree)[0] if torch.is_tensor(x)]
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.append((str(func), digests((args, kwargs)),
+                             [] if "empty" in str(func) else digests(out)))
+            return out
+
+    runs = []
+    for _ in range(2):
+        with contextlib.chdir(NATIVE_WORK_DIR):
+            h = capi.init(device)
+            try:
+                j = capi.set_reference_skeleton(h, skeleton_path)
+                capi.load_models(h, MODEL_DIR)
+                t = read_probe_targets(targets, j)
+                e = capi.set_mask_and_weights(h, t["mask"].tobytes(),
+                                              t["weights"].tobytes())
+                with Record() as rec:
+                    capi.init_drag_model(h, *t["root"].tolist(),
+                                         *t["rot"].tolist())
+                    capi.drag_pose(h, t["pos"][0].tobytes(),
+                                   t["quat"][0].tobytes(), e)
+                runs.append(rec.ops)
+            finally:
+                capi.destroy(h)
+    for i, (a, b) in enumerate(zip(*runs)):
+        if a[1] == b[1] and a[2] != b[2]:
+            return i, a[0]
+    return None
+
+
+def repeatability_figures(frames: int = T_NATIVE) -> dict:
+    """For an A/B of the card path's repeatability against another
+    checkout (run from its root, this file loaded by path):
+    :func:`capi_repeatability` over ``frames`` frames of the main clip and
+    :func:`first_nondeterministic_op`, with the card's name and power
+    limit."""
+    import torch
+
+    from dragposer_tpu_torch import _build
+
+    _build.build_all(["temporal_forward"])
+    bvh = load_clip(T_MAIN, SEED)
+    os.makedirs(NATIVE_WORK_DIR, exist_ok=True)
+    targets = os.path.join(NATIVE_WORK_DIR, "repeatability.f32")
+    write_probe_targets(targets, bvh, frames)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    return {"card": smi, "torch": torch.__version__,
+            "capi_twice": capi_repeatability(targets, clip_path(SEED)),
+            "first_nondeterministic_op": first_nondeterministic_op(
+                targets, clip_path(SEED))}
+
+
+def run_probe(probe: str, library, targets: str, skeleton_path: str,
+              env: dict, cwd: str, threads: bool = False,
+              report: bool = False, model_dir: str = MODEL_DIR,
+              timeout: float = 600) -> dict:
+    """Run the probe host on ``library`` with ``env`` from ``cwd`` (its
+    output in files there: a daemon the client library starts inherits
+    them and outlives the probe).  Returns its exit code, the frames (N,
+    4J + 3), the host-clock ms of each frame and set-up call, the report
+    and the end of its output."""
+    os.makedirs(cwd, exist_ok=True)
+    cmd = [probe, str(library), model_dir, skeleton_path, targets]
+    cmd += ["--threads"] * threads + ["--report"] * report
+    out_path, err_path = (os.path.join(cwd, "probe.out"),
+                          os.path.join(cwd, "probe.err"))
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        rc = subprocess.run(cmd, stdout=out, stderr=err, env=env, cwd=cwd,
+                            timeout=timeout).returncode
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    with open(err_path) as f:
+        stderr = f.read()
+    frames = [ln.split()[1:] for ln in lines if ln.startswith("frame ")]
+    res = {"returncode": rc,
+           "frames": np.array([v[2:] for v in frames], np.float32),
+           "frame_ids": [int(v[0]) for v in frames],
+           "ms": [float(v[1]) for v in frames],
+           "setup_ms": {ln.split()[1]: float(ln.split()[2])
+                        for ln in lines if ln.startswith("setup ")},
+           "report": next((json.loads(ln[len("report "):]) for ln in lines
+                           if ln.startswith("report ")), None),
+           "ok_line": "probe OK" in lines, "stderr": stderr[-2000:]}
+    return res
+
+
+def daemon_pid(socket_path: str) -> int:
+    """The pid of the process listening on ``socket_path``
+    (``SO_PEERCRED``)."""
+    import socket
+    import struct
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.connect(socket_path)
+        cred = s.getsockopt(socket.SOL_SOCKET, socket.SO_PEERCRED,
+                            struct.calcsize("3i"))
+    return struct.unpack("3i", cred)[0]
+
+
+def proc_cmdline(pid: int) -> list:
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return [a.decode() for a in f.read().split(b"\0") if a]
+
+
+def _proc_gone(pid: int) -> bool:
+    """No process ``pid``, or a zombie (not this process's child to reap)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except FileNotFoundError:
+        return True
+
+
+def end_process(pid: int, timeout: float = 30.0) -> bool:
+    """SIGTERM ``pid`` (SIGKILL after ``timeout`` s); True once it is
+    gone."""
+    import signal
+
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        try:
+            os.kill(pid, sig)
+        except ProcessLookupError:
+            return True
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            if _proc_gone(pid):
+                return True
+            time.sleep(0.05)
+    return _proc_gone(pid)
+
+
+def spawned_daemon(socket_path: str) -> dict:
+    """The daemon that answers on ``socket_path``, started by the client
+    library: its pid and command line, its kernels' launch counts
+    (``OP_STATS``), then ended here (it would otherwise wait out its idle
+    timeout)."""
+    from dragposer_tpu_torch.runtime.client import DaemonClient
+
+    pid = daemon_pid(socket_path)
+    cmdline = proc_cmdline(pid)
+    with DaemonClient(socket_path, timeout=60) as c:
+        kernels = c.stats()["kernels"]
+    return {"pid": pid, "cmdline": cmdline, "kernels": kernels,
+            "port_module": "dragposer_tpu_torch.runtime.server" in cmdline,
+            "jax_module": any(re.search(r"\bdragposer_tpu\.", a)
+                              for a in cmdline),
+            "ended": end_process(pid)}
+
+
+def native_env(**extra) -> dict:
+    """This environment without the native layer's variables, plus
+    ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DRAGPOSER_DEVICE", "DRAGPOSER_SOCKET",
+                        "DRAGPOSER_NO_SPAWN", "DRAGPOSER_PYROOT",
+                        "DRAGPOSER_PYTHON")}
+    env.update(extra)
+    return env
+
+
+def native_phase(bvh, skeleton_path: str, session: dict,
+                 frames: int = T_NATIVE) -> dict:
+    """The port's native layer on the card.  (a) ``probe`` on the embedded
+    ABI (no ``DRAGPOSER_DEVICE``: the card), ``frames`` frames of the clip,
+    against ``capi`` in this process on the card (``NATIVE_TOL``), with
+    K2's library removed first so that the host process builds it (its
+    seconds apart from the frames); the report from the embedded
+    interpreter: the session's device, the card, K2 launched and no plain
+    K2, no module of the JAX package.  (b) the frame latency through the
+    ABI beside ``[16]``'s (``session``) and this process's capi run.  (c)
+    ``probe`` on the socket client with no daemon listening: it starts the
+    port's daemon on the card, whose command line and launch counts are
+    read and which is then ended; its frames held to the same tolerance."""
+    from dragposer_tpu_torch import _build
+
+    shutil.rmtree(NATIVE_WORK_DIR, ignore_errors=True)
+    os.makedirs(NATIVE_WORK_DIR)
+    t0 = time.time()
+    libs = {k: _build.native_library(k) for k in ("abi", "client")}
+    probe = build_probe(NATIVE_WORK_DIR)
+    res = {"build_s": time.time() - t0,
+           "libraries": {k: os.path.basename(v) for k, v in libs.items()}}
+    targets = os.path.join(NATIVE_WORK_DIR, "targets.f32")
+    write_probe_targets(targets, bvh, frames)
+    k2_library = _build.library_path("temporal_forward")
+    k2_library.unlink()          # the host's first rollout builds it anew
+    abi = run_probe(probe, libs["abi"], targets, skeleton_path, native_env(),
+                    os.path.join(NATIVE_WORK_DIR, "abi"), report=True)
+    with contextlib.chdir(NATIVE_WORK_DIR):   # capi's session log
+        ref, ref_seconds = capi_frames(targets, skeleton_path, "cuda")
+    report = abi["report"] or {}
+    kernels = report.get("kernels", {})
+    a = res["abi"] = {
+        "returncode": abi["returncode"], "frames": len(abi["ms"]),
+        "max_abs_err": (float(np.abs(abi["frames"] - ref).max())
+                        if abi["frames"].shape == ref.shape else None),
+        "tolerance": NATIVE_TOL, "devices": report.get("devices"),
+        "card": report.get("card"), "launches": kernels,
+        "k2_build_s": report.get("build_seconds", {}).get(
+            "temporal_forward"),
+        "setup_ms": abi["setup_ms"],
+        "jax_package_modules": report.get("jax_package_modules"),
+        "stderr_tail": abi["stderr"][-300:] if abi["returncode"] else ""}
+    res["latency"] = {
+        "abi": {**latency_ms(np.asarray(abi["ms"]) / 1e3),
+                "first_frame_ms": abi["ms"][0] if abi["ms"] else None},
+        "capi_in_process": latency_ms(ref_seconds),
+        "session [16]": {k: session[k] for k in ("p50_ms", "p90_ms",
+                                                 "p99_ms")}}
+    ok = (abi["returncode"] == 0 and abi["ok_line"]
+          and a["max_abs_err"] is not None and a["max_abs_err"] <= NATIVE_TOL
+          and bool(a["devices"]) and all(d.startswith("cuda")
+                                         for d in a["devices"])
+          and a["card"] is not None and kernels.get("K2", 0) > 0
+          and kernels.get("K2_plain", 1) == 0
+          and a["k2_build_s"] is not None and a["jax_package_modules"] == [])
+
+    sock = os.path.join(NATIVE_WORK_DIR, "d.sock")
+    t0 = time.time()
+    try:
+        client = run_probe(probe, libs["client"], targets, skeleton_path,
+                           native_env(DRAGPOSER_SOCKET=sock),
+                           os.path.join(NATIVE_WORK_DIR, "client"))
+    finally:   # the daemon the client started, ended however the run went
+        daemon = (spawned_daemon(sock) if os.path.exists(sock)
+                  else {"error": "no daemon listens"})
+    c = res["client"] = {
+        "returncode": client["returncode"], "frames": len(client["ms"]),
+        "seconds": time.time() - t0,
+        "max_abs_err": (float(np.abs(client["frames"] - ref).max())
+                        if client["frames"].shape == ref.shape else None),
+        "latency": latency_ms(np.asarray(client["ms"]) / 1e3)
+        if client["ms"] else None,
+        "setup_ms": client["setup_ms"],
+        "stderr_tail": client["stderr"][-300:] if client["returncode"]
+        else ""}
+    d = c["daemon"] = daemon
+    res["ok"] = (ok and client["returncode"] == 0 and client["ok_line"]
+                 and c["max_abs_err"] is not None
+                 and c["max_abs_err"] <= NATIVE_TOL
+                 and d.get("port_module", False)
+                 and not d.get("jax_module", True)
+                 and d.get("kernels", {}).get("K2", 0) > 0
+                 and d["kernels"]["K2_plain"] == 0 and d["ended"])
+    return res
+
+
+# ---------------------------------------------------------------------------
 # The wide models (K1's general build), the data-parallel CLI, the .pt import
 # ---------------------------------------------------------------------------
 
@@ -4441,6 +4856,21 @@ def main() -> int:
           + json.dumps(r), flush=True)
     if not r["ok"]:
         fail(f"the .pt import round trip failed: {r}")
+    t22 = time.time()
+    native = native_phase(bvh, path, session)
+    native["phase_s"] = time.time() - t22
+    native["nvidia_smi"] = smi
+    print(f"[22] the port's native layer on the card: a host process "
+          f"(dlopen RTLD_LOCAL) through the embedded ABI and through the "
+          f"socket client, which starts the port's daemon, {T_NATIVE} frames "
+          f"each against capi in this process (max abs <= {NATIVE_TOL:g}), "
+          f"frame latency beside [16], K2's build in the host: "
+          + json.dumps(native), flush=True)
+    if not native["ok"]:
+        fail(f"the native layer failed its checks: {native}")
+    native_k2 = {"native ABI [22]": native["abi"]["launches"]["K2"],
+                 "socket client's daemon [22]":
+                 native["client"]["daemon"]["kernels"]["K2"]}
 
     realtime_k = {k: (session["launches"][k]
                       + sum(c[k] for c in crowd["launches"].values())
@@ -4485,11 +4915,12 @@ def main() -> int:
         {"name": "K2 temporal-transformer forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/temporal_forward.cu",
          "replaces": "dragposer_tpu/ops/temporal_fused.py:248",
-         "launches": launches["K2"] + anchor_k["K2"] + realtime_k["K2"],
+         "launches": (launches["K2"] + anchor_k["K2"] + realtime_k["K2"]
+                      + sum(native_k2.values())),
          "launches_by_path": {"main [5]": launches["K2"],
                               "anchor phase [15]": anchor_k["K2"],
                               **realtime_launches("K2", session, crowd,
-                                                  daemon)},
+                                                  daemon), **native_k2},
          "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
@@ -4536,13 +4967,13 @@ def main() -> int:
              "bwd_plain_ms", "bwd_bound_ms")
     k3_times = (*times, "fwd_device_ms", "bwd_device_ms",
                 "fwd_bound_f32_cuda_core_ms", "bwd_bound_f32_cuda_core_ms")
-    print("[22] the same kernels at B=4096, the batch the JAX package "
+    print("[23] the same kernels at B=4096, the batch the JAX package "
           "profiled its step at: " + json.dumps({
               "K3a/K3b": {k: k3r_big[k] for k in k3_times},
               "K3c/K3d": {k: k3_big[k] for k in k3_times},
               "K4": {k: k4_big[k] for k in (*times, "library_fwd_ms",
                                             "library_bwd_ms")}}), flush=True)
-    print(f"[22] total {time.time() - t_start:.1f} s")
+    print(f"[23] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and build its native libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
@@ -10,6 +10,12 @@ import time.  :func:`load` is safe to call from several threads (the
 serving daemon serves each connection on its own): one lock per kernel
 name, and each build writes its own temporary file (named by pid, thread
 id and a build count).
+
+:func:`native_library` builds the C ABI of ``native/dragposer_abi.h`` the
+same way, with ``g++`` (host C++, no CUDA): ``native/abi.cpp`` (CPython
+embedded) and ``native/client.cpp`` (the socket client), named by a hash
+of the sources and of the command, which compiles in this checkout and
+this interpreter as the libraries' defaults.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import itertools
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
@@ -29,14 +37,20 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-pthread"]
+NATIVE_LIBS = {"abi": "dragposer_tpu_torch_native",
+               "client": "dragposer_tpu_torch_client"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()   # guards _LOCKS; never held over a build
 _BUILD_IDS = itertools.count()   # a thread id may be reused once it ends
+# seconds of each build this process ran (a library found built is absent)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 _NAMED_COUNTS: Dict[str, "KernelCounts"] = {}
@@ -87,27 +101,32 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _temporary(out: Path) -> Path:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return out.with_suffix(f".{os.getpid()}.{threading.get_ident()}."
+                           f"{next(_BUILD_IDS)}.tmp")
+
+
 def _start_build(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}."
-                          f"{next(_BUILD_IDS)}.tmp")
+    tmp = _temporary(out)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.time()
 
 
 def _finish_build(name: str, started) -> str:
     if started is None:
         return ""
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"{proc.args[0]} failed for {name}:\n{log}")
     os.replace(tmp, out)
+    BUILD_SECONDS[name] = time.time() - t0
     return log
 
 
@@ -121,6 +140,58 @@ def build_all(names: List[str]) -> Dict[str, str]:
     return logs
 
 
+def _name_lock(name: str) -> threading.Lock:
+    with _LOCKS_LOCK:
+        return _LOCKS.setdefault(name, threading.Lock())
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native libraries are built "
+                           "with the host's C++ compiler")
+    return found
+
+
+def _native_command(kind: str) -> tuple:
+    """(compile flags, link flags) of ``native/<kind>.cpp``: this checkout
+    and this interpreter compiled in as the defaults of
+    ``DRAGPOSER_PYROOT`` and ``DRAGPOSER_PYTHON``; the embedded ABI also
+    takes Python's headers, libpython and an rpath to it."""
+    flags = [*CXX_FLAGS, f"-I{NATIVE}",
+             f'-DDRAGPOSER_DEFAULT_PYROOT="{_PKG.parent}"',
+             f'-DDRAGPOSER_DEFAULT_PYTHON="{sys.executable}"']
+    link = []
+    if kind == "abi":
+        libdir = sysconfig.get_config_var("LIBDIR")
+        flags.append(f"-I{sysconfig.get_paths()['include']}")
+        link = [f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+                f"-lpython{sysconfig.get_config_var('LDVERSION')}", "-ldl"]
+    return flags, link
+
+
+def native_library(kind: str) -> Path:
+    """The path of the native library ``kind`` (``"abi"``:
+    ``libdragposer_tpu_torch_native``, ``"client"``:
+    ``libdragposer_tpu_torch_client``), built with ``g++`` on first use.
+    Without ``g++`` it raises."""
+    name = NATIVE_LIBS[kind]
+    flags, link = _native_command(kind)
+    source = NATIVE / f"{kind}.cpp"
+    h = hashlib.sha256(source.read_bytes())
+    h.update((NATIVE / "dragposer_abi.h").read_bytes())
+    h.update("\0".join(flags + link).encode())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    with _name_lock(name):
+        if not out.exists():
+            tmp = _temporary(out)
+            proc = subprocess.Popen(
+                [_gxx(), *flags, "-o", str(tmp), str(source), *link],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            _finish_build(name, (proc, tmp, out, time.time()))
+    return out
+
+
 def load(name: str, declare=None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed.
     ``declare(lib)`` sets its entry points' ``ctypes`` signatures once, when
@@ -130,9 +201,7 @@ def load(name: str, declare=None) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    with _LOCKS_LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
-    with lock:
+    with _name_lock(name):
         if name not in _LIBS:
             _finish_build(name, _start_build(name))
             lib = ctypes.CDLL(str(library_path(name)))

@@ -37,7 +37,9 @@ def positional_encoding(max_len: int, dim: int) -> np.ndarray:
     return pe
 
 
-def _linear(x, p):
+def linear(x, p):
+    """Torch convention: y = x @ Wᵀ + b, ``p`` a ``{"w": (out, in), "b"}``
+    dict."""
     return x @ p["w"].T + p["b"]
 
 
@@ -70,7 +72,7 @@ def _attention(p, q_in, kv_in, n_heads: int, mask=None, rate: float = 0.0,
 
 
 def _ff(lp, x):
-    return _linear(torch.relu(_linear(x, lp["ff1"])), lp["ff2"])
+    return linear(torch.relu(linear(x, lp["ff1"])), lp["ff2"])
 
 
 def forward(params, param, latent, latent_target, tgt_mask=None, *,
@@ -106,8 +108,8 @@ def forward(params, param, latent, latent_target, tgt_mask=None, *,
     def attn(p, q_in, kv_in, mask=None):
         return _attention(p, q_in, kv_in, h, mask, rate, nk(), train)
 
-    src = _linear(drop(latent, nk()), params["in_proj_enc"])  # in_dropout
-    tgt = _linear(latent_target, params["in_proj_dec"])
+    src = linear(drop(latent, nk()), params["in_proj_enc"])  # in_dropout
+    tgt = linear(latent_target, params["in_proj_dec"])
     src = drop(src + pe[: latent.shape[-2]], nk())
     tgt = drop(tgt + pe[: latent_target.shape[-2]], nk())
     for lp in params["enc_layers"]:
@@ -122,7 +124,7 @@ def forward(params, param, latent, latent_target, tgt_mask=None, *,
         tgt = _layer_norm(
             tgt + drop(attn(lp["cross_attn"], tgt, memory), nk()), lp["ln2"])
         tgt = _layer_norm(tgt + drop(ff(lp, tgt, nk()), nk()), lp["ln3"])
-    return _linear(_layer_norm(tgt, params["dec_norm"]), params["out_proj"])
+    return linear(_layer_norm(tgt, params["dec_norm"]), params["out_proj"])
 
 
 def forward_T(params, param, latentT, latent_targetT, tgt_mask=None, *,

@@ -24,8 +24,9 @@ the plain twins
 (:func:`forward_plain` / :func:`backward_plain`, :func:`forward_plain_rows`
 / :func:`backward_plain_rows`).  ``COUNTS_FWD`` / ``COUNTS_BWD`` (lanes) and
 ``COUNTS_FWD_ROWS`` / ``COUNTS_BWD_ROWS`` count both.  The port has no
-threefry, so JAX's ``ff_dropout(key)`` has no counterpart: callers pass the
-int seed, as to ``ff_dropout_seeded``.
+threefry: its :func:`ff_dropout` draws the seed from a
+``torch.Generator`` where JAX's draws it from a key, then runs
+``ff_dropout_seeded``.
 """
 
 from __future__ import annotations
@@ -348,3 +349,11 @@ def ff_dropout_seeded(x, ff1, ff2, rate: float, seed: int):
                              ff1["w"], ff1["b"], ff2["w"], ff2["b"],
                              float(rate), int(seed))
     return y.reshape(x.shape)
+
+
+def ff_dropout(x, ff1, ff2, rate: float, generator: torch.Generator):
+    """:func:`ff_dropout_seeded` with its seed drawn from ``generator``, a
+    non-negative int31 as the JAX function draws its own from a PRNG key
+    (the numbers differ: the generators do)."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+    return ff_dropout_seeded(x, ff1, ff2, rate, seed)

@@ -14,6 +14,7 @@ over the static depth schedule.  All functions broadcast over leading dims.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dragposer_tpu_torch.ops import quat
@@ -24,9 +25,20 @@ def _const(a, like):
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
+def _parent_rows(x, skeleton: Skeleton):
+    """``x[..., parents[j], :]`` for every joint j, as the product of the
+    one-hot parent matrix with ``x``.  The backward of ``index_select``
+    sums the gradients of joints that share a parent with atomics on the
+    card, in an order that changes from run to run, and a realtime
+    session's frames then drift apart past 1e-5 within tens of frames; a
+    product's backward sums them in a fixed order.  The forward is exact:
+    one term of each sum is nonzero."""
+    onehot = np.eye(skeleton.n_joints, dtype=np.float32)[skeleton.parents]
+    return torch.matmul(_const(onehot, x), x)
+
+
 def _positions_from_world(world_rot, root_pos, skeleton: Skeleton):
-    parents = torch.as_tensor(skeleton.parents, device=world_rot.device)
-    parent_rot = world_rot.index_select(-2, parents)
+    parent_rot = _parent_rows(world_rot, skeleton)
     offsets = _const(skeleton.offsets, world_rot).expand(
         world_rot.shape[:-1] + (3,))
     contrib = quat.mul_vec(parent_rot, offsets)

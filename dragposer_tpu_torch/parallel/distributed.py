@@ -2,9 +2,9 @@
 (port of ``dragposer_tpu/parallel/distributed.py``).
 
 * :func:`initialize` — one call per process (``torch.distributed``'s
-  ``init_process_group``: ``nccl`` on the cards, ``gloo`` on the CPU; the
-  arguments may come from environment variables, so a launcher can start
-  N identical processes);
+  ``init_process_group``: ``nccl`` on the cards, ``gloo`` on the CPU
+  where the caller asks for it; the arguments may come from environment
+  variables, so a launcher can start N identical processes);
 * :func:`global_mesh` — a (data, model) mesh over every process's device,
   with its ``DeviceMesh``;
 * :func:`shard_host_batch` — each process's LOCAL batch shard as one
@@ -24,15 +24,18 @@ from typing import Optional
 
 import torch
 
+from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.parallel import mesh as meshlib
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
+               process_id: Optional[int] = None, device=None) -> None:
     """Join the process group (a no-op for a single-process run: no
     argument and no variable set).  ``coordinator_address`` is
-    ``host:port`` (or a ``tcp://`` URL) of process 0."""
+    ``host:port`` (or a ``tcp://`` URL) of process 0.  ``device`` is
+    ``cuda`` by default (``nccl``, a card a process; no GPU raises) or
+    ``cpu`` (``gloo``), never the CPU unasked."""
     import torch.distributed as dist
 
     coordinator_address = coordinator_address or os.environ.get(
@@ -51,7 +54,7 @@ def initialize(coordinator_address: Optional[str] = None,
                          "process count and this process's id")
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")
-    cuda = torch.cuda.is_available()
+    cuda = resolve_device(device).type == "cuda"
     if cuda:
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group("nccl" if cuda else "gloo", init_method=url,

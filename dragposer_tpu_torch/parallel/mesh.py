@@ -13,7 +13,8 @@ two ways PyTorch has:
   placements the spec names (``Shard(0)``, ``Shard(1)``, ``Replicate()``
   on each mesh axis);
 * in one process, a mesh is a grid of local devices (every card, or the
-  one CPU; a caller may name the same device more than once), and
+  one CPU where the caller asks for it; a caller may name the same
+  device more than once), and
   placing a tree gives one copy of it per device, cut as the spec says;
   the caller runs its work on each (``cli/eval_drag.evaluate_batched``:
   one engine replica and CUDA stream a device).
@@ -33,15 +34,16 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dragposer_tpu_torch._device import resolve_device
+
 AXES = ("data", "model")
 
 
 def local_devices(kind: Optional[str] = None) -> list:
-    """This process's devices of ``kind`` (``cuda`` when a card is
-    present, else ``cpu``): every local card, or the one CPU."""
-    if kind is None:
-        kind = "cuda" if torch.cuda.is_available() else "cpu"
-    if kind == "cuda":
+    """This process's devices of ``kind``: every local card (``cuda``,
+    the default, which raises where no GPU is visible) or the one CPU
+    (``cpu``, only when asked for)."""
+    if resolve_device(kind).type == "cuda":
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")]
@@ -81,10 +83,10 @@ class NamedSharding:
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
-    """(data, model) mesh; defaults to all local devices on the data
-    axis.  Where a process group runs and ``devices`` is not given, the
-    mesh spans its processes (one device each) and carries their
-    ``DeviceMesh``."""
+    """(data, model) mesh; defaults to all local cards on the data axis
+    (no GPU raises: a CPU mesh is built from ``devices``).  Where a
+    process group runs and ``devices`` is not given, the mesh spans its
+    processes (one device each) and carries their ``DeviceMesh``."""
     import torch.distributed as dist
 
     if devices is None and dist.is_available() and dist.is_initialized():

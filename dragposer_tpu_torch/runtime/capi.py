@@ -1,9 +1,9 @@
 """Flat session bridge (port of ``dragposer_tpu/runtime/capi.py``).
 
 The serving daemon (``runtime/server.py``) maps its opcodes onto these
-functions: only scalars and ``bytes`` cross the boundary, arrays as
-little-endian float32 buffers, so a C-ABI layer could call them through the
-CPython C API as well.
+functions, and the embedded C ABI (``dragposer_tpu_torch/native/abi.cpp``)
+calls them through the CPython C API: only scalars and ``bytes`` cross the
+boundary, arrays as little-endian float32 buffers.
 
 Handles are integers so several sessions can coexist (the reference DLL
 hands out one ``DragPoser*`` per ``init_drag_poser``, ``exportFunc.cpp``).

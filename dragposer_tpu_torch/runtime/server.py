@@ -8,13 +8,13 @@ restart) pays interpreter and model start-up, and two host processes cannot
 share a card.  Here the engines live in one long-running daemon; the native
 client library (``native/dragposer_client.cpp``, unchanged: it speaks this
 protocol) is a few KB of socket code with no interpreter, so host start-up
-is instant and N host processes share the warm engines.  Serve native
-clients from this package with::
+is instant and N host processes share the warm engines.  The port's own
+client library (``dragposer_tpu_torch/native/client.cpp``, built by
+``_build.native_library("client")``) starts this daemon when none answers;
+a client of ``native/`` is pointed at it::
 
     python -m dragposer_tpu_torch.runtime.server --socket PATH
     DRAGPOSER_SOCKET=PATH DRAGPOSER_NO_SPAWN=1 <native client>
-
-(the client library's own auto-spawn starts the JAX package's daemon).
 
 Concurrency model (one thread per connection + a frame coalescer):
 

@@ -144,3 +144,25 @@ def test_leading_dims_are_rows_in_c_order():
     y2 = tff.ff_dropout_seeded(t["x"], ff1, ff2, 0.3, 5)
     assert y3.shape == (3, 4, D)
     np.testing.assert_array_equal(y3.reshape(12, D).numpy(), y2.numpy())
+
+
+def test_ff_dropout_draws_its_seed_from_a_generator():
+    """``ff_dropout(generator)`` is ``ff_dropout_seeded`` at the int31 the
+    generator draws, against JAX's ``ff_dropout_seeded`` at that seed (the
+    tolerance of :func:`test_forward_and_grads_match_jax`); the generator
+    advances, so a second call draws another mask."""
+    a = _inputs(100, 128, 7)
+    ff1 = {"w": a["w1"], "b": a["b1"]}
+    ff2 = {"w": a["w2"], "b": a["b2"]}
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                             generator=torch.Generator().manual_seed(11)))
+    gen = torch.Generator().manual_seed(11)
+    t1, t2 = ({k: torch.as_tensor(v) for k, v in p.items()}
+              for p in (ff1, ff2))
+    got = tff.ff_dropout(torch.as_tensor(a["x"]), t1, t2, 0.3, gen)
+    ref = jff.ff_dropout_seeded(a["x"], ff1, ff2, 0.3,
+                                jnp.array(seed, jnp.int32), bf16=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    again = tff.ff_dropout(torch.as_tensor(a["x"]), t1, t2, 0.3, gen)
+    assert not torch.equal(again, got)

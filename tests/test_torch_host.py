@@ -130,6 +130,30 @@ def test_fk_matches():
                                atol=1e-6)
 
 
+def test_fk_parent_rows_equal_the_gather():
+    """FK's parent rows as a one-hot product (its backward sums in a fixed
+    order on the card): the forward equals ``index_select`` bit for bit,
+    the gradient within 1e-6 (a parent's children summed in another
+    order), second derivatives included (the VAE trainer's
+    ``create_graph``)."""
+    from dragposer_tpu_torch.ops import fk as tfk
+    from dragposer_tpu_torch.ops.topology import Skeleton as TS
+
+    ts = TS.build(EXAMPLE_PARENTS, np.zeros((22, 3), np.float32))
+    parents = torch.as_tensor(ts.parents)
+    x = torch.tensor(_unit(3, 22), requires_grad=True)
+    g = torch.as_tensor(RNG.normal(size=(3, 22, 4)).astype(np.float32))
+    got, ref = tfk._parent_rows(x, ts), x.index_select(-2, parents)
+    assert torch.equal(got, ref)
+    (dg,) = torch.autograd.grad((got ** 2 * g).sum(), x, create_graph=True)
+    (dr,) = torch.autograd.grad((ref ** 2 * g).sum(), x, create_graph=True)
+    np.testing.assert_allclose(dg.detach().numpy(), dr.detach().numpy(),
+                               rtol=0, atol=1e-6)
+    (hg,) = torch.autograd.grad(dg.sum(), x)
+    (hr,) = torch.autograd.grad(dr.sum(), x)
+    np.testing.assert_allclose(hg.numpy(), hr.numpy(), rtol=0, atol=1e-6)
+
+
 def test_encoding_matches(clip_path):
     from dragposer_tpu import config as jc
     from dragposer_tpu.data import encoding as je

@@ -113,3 +113,20 @@ def test_temporal_forward_matches(s_dec):
                         torch.as_tensor(decT), torch.as_tensor(mask))
     np.testing.assert_allclose(gotT.numpy(), np.asarray(refT), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_linear_matches():
+    """``models/temporal.linear`` on the example's input projection, 1e-5
+    relative as the other float32 forwards."""
+    from dragposer_tpu import config as jc
+    from dragposer_tpu.models import loading as jl
+    from dragposer_tpu.models import temporal as jt
+    from dragposer_tpu_torch.models import loading, temporal as tt
+
+    params, _, _ = jl.load_temporal(MODEL_DIR, jc.TEMPORAL_PARAM)
+    p = params["in_proj_enc"]
+    x = np.random.default_rng(0).normal(
+        size=(3, 5, np.shape(p["w"])[1])).astype(np.float32)
+    got = tt.linear(torch.as_tensor(x), loading.tree_to_torch(p, "cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jt.linear(x, p)),
+                               rtol=1e-5, atol=1e-6)

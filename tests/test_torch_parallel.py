@@ -10,13 +10,16 @@ package's rules, on the CPU.
   twice by a stubbed ``local_devices``) on an odd lane count (one inert
   padding lane) against the unsharded run, lane by lane, within 1e-6;
 * ``_run_sharded`` itself on 5 lanes, and two processes joined by
-  ``torch.distributed`` (gloo) each running 4 of 8 lanes, gathered
+  ``torch.distributed`` (gloo, asked for by ``device="cpu"``) each
+  running 4 of 8 lanes, gathered
   through ``DTensor``s, against one process running all of them: PyTorch's
   CPU matmuls round a lane differently at another lane count (5e-5 in
   the latent between 3 and 5 lanes, no sharding involved), so these hold
   the pipeline lockstep's tolerances (``tests/test_torch_pipeline.py``);
   the processes also place the temporal weights as DTensors on a (1, 2)
-  mesh.  The worker is this file run as a script, with a 120 s timeout.
+  mesh.  The worker is this file run as a script, with a 120 s timeout;
+* with no GPU and no device named, the layer raises: it never runs on the
+  CPU unasked.
 """
 
 import os
@@ -60,9 +63,13 @@ def test_make_mesh_axes():
 
 
 def test_make_mesh_defaults_to_local_devices_on_data(monkeypatch):
+    """``make_mesh()`` takes ``local_devices()``; the CPU is a device only
+    where the caller names it."""
     from dragposer_tpu_torch.parallel import mesh as meshlib
 
     assert meshlib.local_devices("cpu") == [torch.device("cpu")]
+    assert meshlib.make_mesh(devices=meshlib.local_devices(
+        "cpu")).devices.shape == (1, 1)
     _cpu_slots(monkeypatch, 3)
     mesh = meshlib.make_mesh()
     assert mesh.devices.shape == (3, 1)
@@ -267,7 +274,7 @@ def _worker(rank: int, world: int, port: int, out: str) -> None:
     os.environ.update(DRAGPOSER_COORDINATOR=f"127.0.0.1:{port}",
                       DRAGPOSER_NUM_PROCS=str(world),
                       DRAGPOSER_PROC_ID=str(rank))
-    dist.initialize()
+    dist.initialize(device="cpu")
     mesh = dist.global_mesh()
     assert mesh.shape == {"data": world, "model": 1}
     engine, means, stds, _ = _engine_and_clips_for_worker()
@@ -353,6 +360,24 @@ def test_two_processes_match_one(tmp_path):
                                atol=1e-5)
     np.testing.assert_allclose(got["pose"], ref["pose"], rtol=1e-3,
                                atol=2e-3)
+
+
+def test_no_device_without_a_gpu_raises(monkeypatch):
+    """With no GPU visible, a call that names no device raises where it
+    once gave a CPU mesh or a gloo group: ``local_devices()``,
+    ``make_mesh()`` and ``initialize`` (before it joins any group)."""
+    import torch.distributed
+
+    from dragposer_tpu_torch.parallel import distributed as dist
+    from dragposer_tpu_torch.parallel import mesh as meshlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (meshlib.local_devices, meshlib.make_mesh,
+                 lambda: dist.initialize(f"127.0.0.1:{_free_port()}", 2, 0)):
+        with pytest.raises(RuntimeError, match="no GPU is available"):
+            call()
+    assert not torch.distributed.is_initialized()
+    assert meshlib.local_devices("cpu") == [torch.device("cpu")]
 
 
 def test_initialize_without_settings_is_a_no_op(monkeypatch):
