@@ -19,11 +19,16 @@ printing its own line (any failure exits nonzero):
    time and CUDA events around a call beside it, and its timed build's
    clock cycles by phase; then K1's general build (the models past the
    narrow build's J ≤ 32, L ≤ 32, hidden ≤ 64) the same way at the
-   example skeleton with latent 48 and at chains of 33 and 64 joints
-   (random seeded generators): at sync_k = 1 only first-step knife lanes
+   example skeleton with latent 48, at chains of 33 and 64 joints and at
+   its limits, a 128-joint chain at latent 128 (random seeded
+   generators): at sync_k = 1 only first-step knife lanes
    (``k1_knife_lanes``) over the tolerance, at most B // 1000 lanes over
    it at sync_k = 24 and the 1e-2 latent cap on every other lane, its
-   TF32 control refused at sync_k = 1;
+   TF32 control refused at sync_k = 1; at each shape the layout
+   ``iter_kernel.general_layout`` picks (weights resident in shared
+   memory or streamed from device memory) must be the one that launched
+   (teams a block, shared memory, blocks an SM from the profiler's
+   trace), with its timed build's cycles by phase;
 4. K2 (temporal-transformer forward, 3xTF32 on the tensor cores) against
    its float32 plain twin at S_dec = 5, 1 (the main path, timed beside
    ``PERF.md``'s figure), 16 (a rollout at the realtime window 60) and 30
@@ -105,10 +110,14 @@ printing its own line (any failure exits nonzero):
     ``OP_EVAL_BATCH`` while a client keeps stepping, and the native smoke
     client (``native/``, built with ``g++``) through
     ``DRAGPOSER_NO_SPAWN``;
-19. the pipelined path at latent 48 (K1's general build) on B = 8192 × 240
-    frames with its launch counts (the general build launched, no plain
-    K1 call, no aux rebuild) and frames/s, then 8 lanes × 24 frames on the
-    card against the CPU at one Adam step a frame;
+19. the pipelined path at latent 48 (K1's general build, its weights
+    resident) and on chains of 33 and 64 joints at latent 24 and of 128
+    joints at latent 128 (streamed, built for 4, 2 and 1 blocks an SM) on
+    B = 8192 × 240 frames each (2048 at 128 joints, cut for time), with
+    launch counts (the general build launched in the layout the wrapper
+    picks, no plain K1 call, no aux rebuild), frames/s and the tile
+    efficiency of K1's launches, then 8 lanes × 24 frames on the card
+    against the CPU at one Adam step a frame;
 20. ``eval_drag --batch`` on two synthetic clips without and with
     ``--mesh 1`` (in turns): equal metrics and exported files, frames/s;
     the sharded path (``eval_drag._run_sharded``: replica, stream, thread)
@@ -130,8 +139,8 @@ printing its own line (any failure exits nonzero):
     read from ``/proc``), held to the same, the daemon ended here;
 23. the B = 4096 timings, a ``kernels`` JSON line (K1's and K2's launches
     summed over [5], [15], [16]-[18] and (K2) [22], the general build's
-    from [19]); the last line is the ``ok`` JSON.  SM and memory clocks are sampled
-    beside every timed phase.
+    by layout from [19]); the last line is the ``ok`` JSON.  SM and memory
+    clocks are sampled beside every timed phase.
 
 The synthetic clip generator here (:func:`synthetic_bvh`) is shared with the
 CPU tests; importing this module has no side effects.
@@ -657,6 +666,8 @@ def check_k1(engine, B: int, sync_k: int, per_lane: bool = False,
     res["build"] = iter_kernel.build_for(
         engine.skeleton.n_joints, opt.latent.shape[1], kctx.W1.shape[0],
         kctx.W2.shape[0])
+    if hasattr(iter_kernel, "launch_build"):   # not in a parent's package
+        res["kernel"] = iter_kernel.launch_build(kctx, opt)
     if control:
         tf32 = iter_kernel.run_block_tf32(ctx, kctx, hyper, sync_k, *args)
         torch.cuda.synchronize()
@@ -1332,20 +1343,35 @@ def k2_short_build_matches(parent_library: str) -> dict:
             "long_build_instructions": len(long_)}
 
 
+def k1_kernel_key(fn: str):
+    """(build, passes, timed) of a K1 kernel's mangled name, else None.
+    The build is "narrow" (``Build<32, 32, 64, ...>``; in a library from
+    before the general build, the kernel that took no build parameter),
+    else by where its weights sit: "resident" (shared memory) or
+    "streamed<N>" (device memory, at most N blocks an SM; the general
+    build of a library from before its layouts reads as "streamed2")."""
+    m = re.search(r"iter_block_kernelI(?:.*?BuildI((?:Li\d+E)+)Lb(\d)E+)?"
+                  r"Li(\d)ELb(\d)E", fn)
+    if m is None:
+        return None
+    if not m.group(1) or m.group(1).startswith("Li32ELi32ELi64E"):
+        build = "narrow"
+    elif m.group(2) == "1":
+        build = "resident"
+    else:   # Build<J, L, H, teams, blocks an SM, ...>
+        blocks = re.findall(r"Li(\d+)E", m.group(1))[4]
+        build = f"streamed{blocks}"
+    return build, int(m.group(3)), bool(int(m.group(4)))
+
+
 def k1_kernels(library: str) -> dict:
     """K1's kernels in a built ``iter_block`` library by build: {(build,
-    passes, timed): [instruction text]}, build "narrow" or "general" (a
-    library from before the general build has only its narrow kernel,
-    which took no build parameter)."""
+    passes, timed): [instruction text]} (:func:`k1_kernel_key`)."""
     out = {}
     for fn, body in sass_functions(library).items():
-        m = re.search(r"iter_block_kernelI(?:.*?BuildI((?:Li\d+E)+)Lb\dE+)?"
-                      r"Li(\d)ELb(\d)E", fn)
-        if m is None:
-            continue
-        build = "general" if m.group(1) and not m.group(1).startswith(
-            "Li32ELi32ELi64E") else "narrow"
-        out[(build, int(m.group(2)), bool(int(m.group(3))))] = body
+        key = k1_kernel_key(fn)
+        if key is not None:
+            out[key] = body
     return out
 
 
@@ -1368,7 +1394,9 @@ def k1_short_build_matches(parent_library: str) -> dict:
             + abs(len(old) - len(new)),
             "first_differences": [(i, a, b) for i, (a, b) in enumerate(
                 zip(old, new)) if a != b][:8]}
-    res["general_build_instructions"] = len(mine[("general", 3, False)])
+    res["general_build_instructions"] = {
+        build: len(body) for (build, passes, timed), body in mine.items()
+        if build != "narrow" and passes == 3 and not timed}
     res["differing"] = sum(r["differing"] for r in res.values()
                            if isinstance(r, dict))
     return res
@@ -2824,6 +2852,8 @@ def reset_kernel_counts() -> None:
 
     fast_iter.COUNTS.reset()
     iter_kernel.GENERAL_COUNTS.reset()
+    for c in iter_kernel.LAYOUT_COUNTS.values():
+        c.reset()
     temporal_fused.COUNTS.reset()
 
 
@@ -3980,6 +4010,13 @@ K1_NARROW_SASS = dict(
            "49bbe8b8d53d0d28b3215886ae26b7aa")
 WIDE_LATENT = 48                # a latent width past the narrow build's 32
 WIDE_CHAINS = (33, 64)          # chains past its 32 joints and 64 hidden
+WIDE_LIMIT = (128, 128)         # a chain at the general build's J and L
+# the [3] shape of each general layout's path in [19]
+K1_PATH_SHAPES = {"resident": f"example_latent{WIDE_LATENT}",
+                  "streamed4": f"chain{WIDE_CHAINS[0]}_latent24",
+                  "streamed2": f"chain{WIDE_CHAINS[1]}_latent24",
+                  "streamed1": "chain{}_latent{}".format(*WIDE_LIMIT)}
+B_LIMIT_PATH = 2048   # [19]'s path at the limits, cut from 8192 for time
 WIDE_DIR = os.path.join(WORK_DIR, "wide48")
 MESH_WORK_DIR = os.path.join(WORK_DIR, "mesh")
 PT_WORK_DIR = os.path.join(WORK_DIR, "pt")
@@ -3998,17 +4035,100 @@ def k1_narrow_sass_gate(digest: dict) -> dict:
 
 def wide_engines(parents, skeleton, device="cuda") -> dict:
     """The models K1's general build serves in the checks: the example
-    skeleton at latent 48 (:func:`write_wide_model`, no temporal model)
-    and chains of ``WIDE_CHAINS`` joints at latent 24 (:func:`wide_engine`).
-    {name: engine}."""
+    skeleton at latent 48 (:func:`write_wide_model`, no temporal model),
+    chains of ``WIDE_CHAINS`` joints at latent 24 and the chain at the
+    build's limits, ``WIDE_LIMIT`` (hidden 136 / 264, 1.52 MB of split
+    weights; :func:`wide_engine`).  {name: engine}."""
     from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
 
     write_wide_model(WIDE_DIR, WIDE_LATENT)
     out = {f"example_latent{WIDE_LATENT}": build_engine(
         WIDE_DIR, parents, resolve_config("6_trackers"), skeleton=skeleton,
         use_temporal=False, device=device)[0]}
-    for J in WIDE_CHAINS:
-        out[f"chain{J}_latent24"] = wide_engine(J, 24, device=device)[0]
+    for J, L in [(J, 24) for J in WIDE_CHAINS] + [WIDE_LIMIT]:
+        out[f"chain{J}_latent{L}"] = wide_engine(J, L, device=device)[0]
+    return out
+
+
+# One H100 SM: registers (allocated 256 a warp), shared memory (1 KB of it
+# reserved a block), warps and blocks it holds at most.
+H100_SM = dict(registers=65536, shared_bytes=233472, reserved_bytes=1024,
+               warps=64, blocks=32)
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int, sm=H100_SM) -> int:
+    """Blocks an SM holds at ``regs`` registers a thread, ``threads`` a
+    block and ``smem`` bytes of shared memory a block (the occupancy
+    calculator's rule)."""
+    warps = -(-threads // 32)
+    regs_warp = -(-regs * 32 // 256) * 256
+    return min(sm["registers"] // (regs_warp * warps),
+               sm["shared_bytes"] // (smem + sm["reserved_bytes"]),
+               sm["warps"] // warps, sm["blocks"])
+
+
+def k1_launch_config(kctx, opt, fn) -> dict:
+    """K1's launch for these inputs as the card reports it
+    (``iter_kernel.launch_config``: registers a thread, threads and shared
+    memory a block, blocks an SM) or, in a package from before that entry,
+    as the profiler's trace of one call of ``fn`` records it (blocks an SM
+    then :func:`blocks_per_sm`), with the warps an SM and the waves:
+    blocks over blocks an SM × SMs."""
+    import torch
+
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(iter_kernel, "launch_config"):
+        c = iter_kernel.launch_config(kctx, opt)
+        threads, blocks, per_sm = c["threads"], c["blocks"], c["blocks_per_sm"]
+        res = {k: c[k] for k in ("registers", "shared_bytes")}
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        os.makedirs(WORK_DIR, exist_ok=True)
+        path = os.path.join(WORK_DIR, "k1_launch_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        args = next(e.get("args", {}) for e in events
+                    if e.get("cat") == "kernel"
+                    and "iter_block_kernel" in e.get("name", ""))
+        blocks, threads = int(np.prod(args["grid"])), int(
+            np.prod(args["block"]))
+        res = {"registers": int(args["registers per thread"]),
+               "shared_bytes": int(args["shared memory"])}
+        per_sm = blocks_per_sm(res["registers"], threads,
+                               res["shared_bytes"])
+    return {**res, "blocks": blocks, "threads": threads,
+            "teams_a_block": threads // 128, "blocks_per_sm": per_sm,
+            "warps_per_sm": per_sm * threads // 32,
+            "waves": blocks / (per_sm * sms) if per_sm else None}
+
+
+def k1_resource_usage(library: str = None) -> dict:
+    """Registers, stack and local memory of each K1 kernel in a built
+    ``iter_block`` library (``cuobjdump --dump-resource-usage``), by the
+    kernel's key in :func:`k1_kernels`, as text."""
+    from dragposer_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run(
+        [tool, "--dump-resource-usage",
+         library or str(_build.library_path("iter_block"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    out = {}
+    for fn, usage in re.findall(r"Function\s+(\S+):\s*\n\s*(REG:.*)", text):
+        key = k1_kernel_key(fn)
+        if key is not None:
+            out["/".join(map(str, key))] = " ".join(
+                w for w in usage.split() if w.split(":")[0] in (
+                    "REG", "STACK", "SHARED", "LOCAL"))
     return out
 
 
@@ -4018,7 +4138,14 @@ def check_k1_general(engine, B: int = B_MAIN, plain_calls: int = 1
     control, which must fail) and at ``SYNC_K`` (timed; the twin timed
     over ``plain_calls`` calls, 0: not timed), with the first-step knife
     lanes (:func:`k1_knife_lanes`) exempt only where
-    :func:`k1_agreement` says."""
+    :func:`k1_agreement` says; at ``SYNC_K`` also its timed build's cycles
+    by phase and its launch (:func:`k1_launch_config`), which must be the
+    layout ``iter_kernel.general_layout`` picks: its teams a block, shared
+    memory and blocks an SM as the card reports them."""
+    import torch
+
+    from dragposer_tpu_torch.drag import iter_kernel
+
     knife = k1_knife_lanes(engine, B)
     one = check_k1(engine, B, 1, timed=False, control=True, knife=knife)
     clocks = gpu_clocks()
@@ -4028,25 +4155,111 @@ def check_k1_general(engine, B: int = B_MAIN, plain_calls: int = 1
     J, ws = engine.skeleton.n_joints, engine.model.decoder["ws"]
     full["shape"] = {"J": J, "L": ws[0].shape[1], "H1": ws[0].shape[0],
                      "H2": ws[1].shape[0], "H3": 4 * J + 3}
+    args = k1_inputs(engine, B)
+    full["phase_cycles"] = iter_kernel.phase_cycles(
+        args[0], args[1], engine.hyper, SYNC_K, *args[2:])
+    full["launch"] = k1_launch_config(
+        args[1], args[2], lambda: iter_kernel.run_block_fused(
+            args[0], args[1], engine.hyper, SYNC_K, *args[2:]))
     ok = (one["ok"] and one["tf32_control_refused"] and full["ok"]
           and one["build"] == full["build"] == "general"
           and full["t_mismatch"] <= B // 1000)
+    if hasattr(iter_kernel, "general_layout"):
+        # the layout the wrapper picked is the one that launched
+        shape = full["shape"]
+        layout = iter_kernel.general_layout(
+            shape["J"], shape["L"], shape["H1"], shape["H2"], B,
+            *iter_kernel.device_limits(torch.device("cuda")))
+        full["layout"] = layout._asdict()
+        launch = full["launch"]
+        ok = ok and (full["kernel"] == one["kernel"] == layout.name
+                     == full["phase_cycles"]["kernel"]
+                     and launch["teams_a_block"] == layout.teams
+                     and launch["shared_bytes"] == layout.smem_bytes
+                     and launch["blocks_per_sm"] == layout.blocks_per_sm)
     return {"sync_k_1": one, f"sync_k_{SYNC_K}": full, "ok": ok}
+
+
+@contextlib.contextmanager
+def k1_layout(name: str):
+    """Inside, K1's general build takes the layout ``name`` wherever it
+    fits (``general_layout(prefer=name)``), to time one layout against the
+    other."""
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    pick = iter_kernel.general_layout
+    iter_kernel.general_layout = lambda *a: pick(*a, prefer=name)
+    try:
+        yield
+    finally:
+        iter_kernel.general_layout = pick
+
+
+def k1_general_figures(B: int = B_MAIN) -> dict:
+    """K1's general build for a parent/change comparison, from whatever
+    ``dragposer_tpu_torch`` is first on the path: the card; at each shape
+    of [3] (:func:`wide_engines`, the limit shape included) at B lanes and
+    sync_k = 24, :func:`check_k1_general` (its own device time, its phase
+    cycles, its launch; the twin untimed) and, in a package with two
+    layouts, the other layout's own time where it fits; the registers of
+    every K1 kernel; then [19]'s path at latent 48 (B × ``T_MAIN``) timed,
+    and the tile efficiency of its launches."""
+    import torch
+
+    from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
+    from dragposer_tpu_torch.data import encoding
+    from dragposer_tpu_torch.drag import iter_kernel
+    from dragposer_tpu_torch.ops.topology import Skeleton
+
+    bvh = load_clip(T_MAIN, SEED)
+    _, _, parents, offsets, _ = encoding.info_from_bvh(bvh)
+    skeleton = Skeleton.build(parents, offsets, bvh.names)
+    res = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), "clocks": [gpu_clocks()], "shapes": {}}
+    keep = ("ms", "wrapper_device_ms", "event_ms", "bound_ms", "steps",
+            "max_abs_err", "lanes_over_tol", "knife_lanes", "shape",
+            "kernel", "layout", "phase_cycles", "launch")
+    for name, engine in wide_engines(parents, skeleton).items():
+        r = check_k1_general(engine, B, plain_calls=0)
+        full = r[f"sync_k_{SYNC_K}"]
+        res["shapes"][name] = {"ok": r["ok"],
+                               **{k: full[k] for k in keep if k in full}}
+        for other in getattr(iter_kernel, "LAYOUTS", ()):
+            if other == full["kernel"]:
+                continue
+            with k1_layout(other):   # the other layouts, where they fit
+                alt = check_k1(engine, B, SYNC_K, plain_calls=0)
+            if alt["kernel"] == other:
+                res["shapes"][name][other] = {
+                    k: alt[k] for k in ("ms", "max_abs_err",
+                                        "lanes_over_tol")}
+    res["resources"] = k1_resource_usage()
+    write_wide_model(WIDE_DIR, WIDE_LATENT)
+    engine, means, stds = build_engine(
+        WIDE_DIR, parents, resolve_config("6_trackers"), skeleton=skeleton,
+        use_temporal=False)
+    states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T_MAIN)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    with k1_steps_recorded() as steps:
+        engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    res["path_latent48"] = {"seconds": seconds,
+                            "frames_per_s": B * T_MAIN / seconds,
+                            "tile_efficiency": tile_efficiency(steps, 16)}
+    res["clocks"].append(gpu_clocks())
+    return res
 
 
 def wide_path(bvh, parents, skeleton, B: int = B_MAIN, T: int = T_MAIN
               ) -> dict:
     """The pipelined path at latent 48 (the example skeleton, 6 trackers,
-    no temporal model) on the card through K1's general build: B lanes × T
-    frames with the launch counts set to 0 just before and read just after
-    (the general build must launch, no plain K1 call and no aux rebuild),
-    frames/s; then a small batch (8 × 24) card against CPU at one Adam step
-    a frame (``one_step_lockstep``)."""
-    import torch
-
+    no temporal model) through K1's general build: :func:`general_path`."""
     from dragposer_tpu_torch.cli.eval_drag import build_engine, resolve_config
-    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
-    from dragposer_tpu_torch.ops import temporal_fused
 
     write_wide_model(WIDE_DIR, WIDE_LATENT)
     engines, means, stds = {}, None, None
@@ -4054,25 +4267,67 @@ def wide_path(bvh, parents, skeleton, B: int = B_MAIN, T: int = T_MAIN
         engines[dev], means, stds = build_engine(
             WIDE_DIR, parents, resolve_config("6_trackers"),
             skeleton=skeleton, use_temporal=False, device=dev)
+    res = general_path(engines, bvh, means, stds, skeleton, B, T)
+    return {"latent_dim": WIDE_LATENT, **res}
+
+
+def chain_path(n_joints: int = WIDE_CHAINS[0], latent: int = 24,
+               B: int = B_MAIN, T: int = T_MAIN) -> dict:
+    """The pipelined path on a chain of ``n_joints`` at ``latent``
+    (:func:`wide_engine`, its seeded clip :func:`synthetic_chain_bvh`)
+    through K1's general build: :func:`general_path`."""
+    engines = {dev: wide_engine(n_joints, latent, device=dev)[0]
+               for dev in ("cuda", "cpu")}
+    _, means, stds, _ = wide_generator(chain_parents(n_joints), latent)
+    # at least the 24 frames of the lockstep
+    res = general_path(engines, synthetic_chain_bvh(n_joints, max(T, 24)),
+                       means, stds, engines["cuda"].skeleton, B, T)
+    return {"n_joints": n_joints, "latent_dim": latent, **res}
+
+
+def general_path(engines, bvh, means, stds, skeleton, B: int, T: int
+                 ) -> dict:
+    """The pipelined path of ``engines["cuda"]`` (a model past the narrow
+    build) on the card: B lanes × T frames with the launch counts set to 0
+    just before and read just after (the general build must launch, in
+    the layout ``iter_kernel.launch_build`` names, no plain K1 call and no
+    aux rebuild), frames/s and the tile efficiency of its launches; then a
+    small batch (8 × 24) card against ``engines["cpu"]`` at one Adam step
+    a frame (``one_step_lockstep``)."""
+    import torch
+
+    from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+    from dragposer_tpu_torch.ops import temporal_fused
+
     engine = engines["cuda"]
     states, dqs, gp, gr = lane_batch(engine, bvh, means, stds, B, T)
     torch.cuda.synchronize()
     reset_kernel_counts()
     t0 = time.time()
-    _, out = engine.run_batch_pipelined(states, dqs, gp, gr, sync_k=SYNC_K)
+    with k1_steps_recorded() as steps:
+        _, out = engine.run_batch_pipelined(states, dqs, gp, gr,
+                                            sync_k=SYNC_K)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = {"K1_general": iter_kernel.GENERAL_COUNTS.kernel,
+                **{f"K1_general_{n}": c.kernel
+                   for n, c in iter_kernel.LAYOUT_COUNTS.items()},
                 "K1": fast_iter.COUNTS.kernel,
                 "K1_plain": fast_iter.COUNTS.plain,
                 "K1_aux_rebuilds": fast_iter.COUNTS.aux,
                 "K2": temporal_fused.COUNTS.kernel}
-    res = {"B": B, "T": T, "latent_dim": WIDE_LATENT, "seconds": seconds,
+    J = skeleton.n_joints
+    ws = engine.model.decoder["ws"]
+    layout = iter_kernel.general_layout(
+        J, ws[0].shape[1], ws[0].shape[0], ws[1].shape[0], B,
+        *iter_kernel.device_limits(torch.device("cuda")))
+    res = {"B": B, "T": T, "seconds": seconds,
            "frames_per_s": B * T / seconds,
            "mean_iterations": float(out.iterations.float().mean()),
            "lane0_mpjpe_m": lane_mpjpe(out, bvh, means, stds, skeleton, T),
-           "launches": launches}
-    shapes_ok = (tuple(out.pose.shape) == (B, T, 88)
+           "launches": launches, "layout": layout._asdict(),
+           "tile_efficiency": tile_efficiency(steps, 16)}
+    shapes_ok = (tuple(out.pose.shape) == (B, T, 4 * J)
                  and bool(torch.isfinite(out.pose).all())
                  and bool(torch.isfinite(out.latent).all())
                  and int(out.iterations.min()) >= 1)
@@ -4085,6 +4340,8 @@ def wide_path(bvh, parents, skeleton, B: int = B_MAIN, T: int = T_MAIN
     ref["card_general_launches"] = iter_kernel.GENERAL_COUNTS.kernel - before
     res["card_vs_cpu"] = ref
     res["ok"] = (shapes_ok and launches["K1_general"] > 0
+                 and launches[f"K1_general_{layout.name}"]
+                 == launches["K1_general"]
                  and not launches["K1_plain"] and not launches["K1"]
                  and not launches["K1_aux_rebuilds"] and ref["one_step_ok"]
                  and ref["card_general_launches"] > 0)
@@ -4542,13 +4799,14 @@ def main() -> int:
     k1_general = {}
     for name, wide in wide_engines(parents, skeleton).items():
         t3 = time.time()
-        # the twin is timed at the path's shape ([19]) only
+        # the twin is timed at the paths' shapes ([19]) only
         r = check_k1_general(wide, plain_calls=int(
-            name == f"example_latent{WIDE_LATENT}"))
+            name in K1_PATH_SHAPES.values()))
         r["check_s"] = time.time() - t3
         k1_general[name] = r
         print(f"[3] K1 general build, {name}, B={B_MAIN} (at most B // 1000 "
-              f"lanes over K1_TOL; TF32 control at sync_k=1): "
+              f"lanes over K1_TOL; TF32 control at sync_k=1; the layout "
+              f"general_layout picks, its phase cycles and launch): "
               + json.dumps(r), flush=True)
         if not r["ok"]:
             fail(f"K1's general build disagrees with its plain twin, or "
@@ -4837,6 +5095,24 @@ def main() -> int:
           flush=True)
     if not wide["ok"]:
         fail(f"the path at latent {WIDE_LATENT} failed its checks: {wide}")
+    paths = {"resident": (f"latent {WIDE_LATENT} [19]", wide)}
+    for layout, J, L, B in (("streamed4", WIDE_CHAINS[0], 24, B_MAIN),
+                            ("streamed2", WIDE_CHAINS[1], 24, B_MAIN),
+                            ("streamed1", *WIDE_LIMIT, B_LIMIT_PATH)):
+        t19 = time.time()
+        chain = chain_path(J, L, B)
+        chain["phase_s"] = time.time() - t19
+        print(f"[19] pipelined path on a {J}-joint chain at latent {L} "
+              f"(K1's general build, {layout}), B={B} x {T_MAIN} frames, "
+              f"then 8 x 24 on the card vs the CPU at one Adam step a "
+              f"frame: " + json.dumps(chain), flush=True)
+        if not chain["ok"]:
+            fail(f"the path on the {J}-joint chain failed its checks: "
+                 f"{chain}")
+        paths[layout] = (f"{J}-joint chain, latent {L} [19]", chain)
+    for layout, (_, run) in paths.items():
+        if run["layout"]["name"] != layout:
+            fail(f"[19]'s {layout} path took the {run['layout']} layout")
     t20 = time.time()
     mesh = mesh_cli_runs()
     mesh["phase_s"] = time.time() - t20
@@ -4877,7 +5153,8 @@ def main() -> int:
                       + crowd["one_frame"]["launches"][k]
                       + daemon["launches"][k]) for k in ("K1", "K2")}
 
-    k1_wide = k1_general[f"example_latent{WIDE_LATENT}"][f"sync_k_{SYNC_K}"]
+    k1_gen = {layout: k1_general[name][f"sync_k_{SYNC_K}"]
+              for layout, name in K1_PATH_SHAPES.items()}
 
     def launched(layout, name):
         return sum(r["launches"][name] for r in runs[layout].values())
@@ -4899,19 +5176,22 @@ def main() -> int:
          "event_ms": k1_main["event_ms"],
          "bound_f32_cuda_core_ms": k1_main["bound_f32_cuda_core_ms"],
          "tile_efficiency": tiles["efficiency"]},
-        {"name": "K1 drag-iteration block, general build", "route": "cuda",
-         "source": "dragposer_tpu_torch/csrc/iter_block.cu",
-         "replaces": "dragposer_tpu/drag/iter_kernel.py:349",
-         "launches": wide["launches"]["K1_general"],
-         "launches_by_path": {f"latent {WIDE_LATENT} [19]":
-                              wide["launches"]["K1_general"]},
-         **{k: k1_wide[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None,
-         "shape": k1_wide["shape"],
-         "by_shape": {n: {k: r[f"sync_k_{SYNC_K}"][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-             "shape")} for n, r in k1_general.items()}},
+        *({"name": f"K1 drag-iteration block, general build, {layout}",
+           "route": "cuda",
+           "source": "dragposer_tpu_torch/csrc/iter_block.cu",
+           "replaces": "dragposer_tpu/drag/iter_kernel.py:349",
+           "launches": run["launches"][f"K1_general_{layout}"],
+           "launches_by_path": {path: run["launches"][f"K1_general_{layout}"]},
+           **{k: k1_gen[layout][k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None,
+           "shape": k1_gen[layout]["shape"],
+           "tile_efficiency": run["tile_efficiency"]["efficiency"],
+           "by_shape": {n: {k: r[f"sync_k_{SYNC_K}"][k] for k in (
+               "kernel", "ms", "bound_ms", "bound_by", "max_abs_err",
+               "shape")} for n, r in k1_general.items()
+               if r[f"sync_k_{SYNC_K}"]["kernel"] == layout}}
+          for layout, (path, run) in paths.items()),
         {"name": "K2 temporal-transformer forward", "route": "cuda",
          "source": "dragposer_tpu_torch/csrc/temporal_forward.cu",
          "replaces": "dragposer_tpu/ops/temporal_fused.py:248",

@@ -68,24 +68,44 @@
 // - the narrow build (Narrow: J ≤ 32, L ≤ 32, H1/H2 ≤ 64; entries
 //   iter_block*), the design above: its weights in shared memory, 4 tiles
 //   a block, one 32-bit word a joint in each topology mask;
-// - the general build (General: J ≤ 128, L ≤ 128, H1/H2 ≤ 272; entries
-//   iter_block_general*) for every model past the narrow limits.  Its
-//   split weights (~375 KB at a 64-joint chain, ~1.5 MB at a 128-joint
-//   chain with latent 128) do not fit the 227 KB of shared memory a block
-//   has, so its products read their fragments from device memory, where
-//   they stay resident in the 50 MB L2; the per-team state stays in shared
-//   memory (~220 KB at J = 128, so one tile a block, with up to 255
-//   registers a thread for a warp's 9 accumulator tiles at H = 272).  A
-//   warp owns latent tiles w, w + 4, ...; a joint's masks take (J + 31) /
-//   32 words, summed in ascending joint order as in the narrow build.
+// - the general build (J ≤ 128, L ≤ 128, H1/H2 ≤ 272; entries
+//   iter_block_resident*, iter_block_streamed{4,2,1}*) for every model past
+//   the narrow limits.  Its weights are packed whole (8 × 8 blocks of
+//   pairs, drag/iter_kernel.py:pack_weights: 42.5 KB at latent 48, 54.5
+//   KB at a 33-joint chain, 190 KB at 64 joints, 0.76 MB at 128 joints and
+//   latent 128) and split in registers into the hi and lo the narrow
+//   build stores, so its sums are those of the design before it, bit for
+//   bit.  A team's scratch (45.7 / 53.4 / 93.3 / 208 KB at those shapes)
+//   sets the teams an SM holds, and 8192 lanes make 512 tiles: one wave
+//   at 4 teams an SM.  The wrapper (iter_kernel.general_layout) takes
+//   - Resident where the weights fit beside as many teams as an SM holds
+//     without them: one copy a block, read by up to 4 teams (512 threads,
+//     128 registers a thread), a tile a pass.  Latent 48: 4 teams, one
+//     wave, the decoder's cycles a warp-step 37k → 31k at twice the warps
+//     an SM.
+//   - Streamed4 / Streamed2 / Streamed1 otherwise: a team a block, the
+//     weights read from device memory (they stay in the 50 MB L2), built
+//     for the 4, 2 or 1 blocks an SM its shared memory holds (Build's PASS
+//     and RING).  The 33-joint chain takes Streamed4 (resident weights
+//     would leave 3 teams an SM: 2 waves, 2.23 ms against 1.43), the
+//     64-joint chain Streamed2 and 128 joints at latent 128 Streamed1.
+//   Each joint's mask sums read four joints at a time (mask_sum): at a
+//   64-joint chain the position and descendant sums take 42k cycles a
+//   warp-step, 62k before.  A warp owns latent tiles w, w + 4, ...; a
+//   joint's masks take (J + 31) / 32 words, summed in ascending joint
+//   order as in the narrow build.  Own device time at B = 8192, sync_k =
+//   24, latent 48 / 33 / 64 / 128 joints, on an H100 at 700 W: 0.83 /
+//   1.43 / 4.27 / 21.8 ms; the design before it (a team a block, weights
+//   split in device memory, 255 registers) 1.45 / 2.27–2.31 / 5.23 / 28.9
+//   in the same call (PERF.md §6).
 // The wrapper takes the narrow build wherever a model fits it, so the main
 // path at the example's 22 joints runs the narrow kernel unchanged.
 //
 // A build of the same source with PASSES = 1 (entries iter_block_tf32,
-// iter_block_general_tf32) runs the products in one TF32 pass: the control
-// that K1's tolerance must refuse, never on the main path.  The timed builds
-// (iter_block_timed, iter_block_general_timed) read the SM clock after each
-// phase of each step.
+// iter_block_<layout>_tf32) runs the products in one TF32 pass: the
+// control that K1's tolerance must refuse, never on the main path.  The
+// timed builds (iter_block_timed, iter_block_<layout>_timed) read the SM
+// clock after each phase of each step.
 //
 // Plain C interface, loaded with ctypes
 // (dragposer_tpu_torch/drag/iter_kernel.py).
@@ -376,9 +396,27 @@ struct Build {
                                                              // latent tiles
   static constexpr int NT1W = (MAXH / 8 + TEAM - 1) / TEAM;  // H1 tiles
   static constexpr int NT2W = (MAXH / 8 + TEAM - 1) / TEAM;  // H2 tiles
+  // Past the narrow limits: weights packed whole (pack_weights, split in
+  // registers) and every product in passes of PASS output tiles: 1 from
+  // shared memory and 3 from device memory where 4 or 2 blocks share an SM
+  // (fewer registers, fewer spills), a warp's every H1 or H2 tile where
+  // one block has the SM (4 warps: more independent mma chains a warp).
+  // At 2 blocks an SM the weights of the next RING / PASS k-steps are
+  // loaded ahead; else (RING < 0) each k-step's where it is used.  Each
+  // choice is the fastest of those timed on the card (PERF.md §6).
+  static constexpr bool GENERAL = MAXJ > 32;
+  static constexpr int WBLK = GENERAL ? 64 : FRAG;      // floats a block
+  static constexpr int PASS = SMEM_W ? 1 : (MIN_BLOCKS >= 2 ? NG3 : NT1W);
+  static constexpr int RING = MIN_BLOCKS == 2 && !SMEM_W ? 6 : -1;
 };
 using Narrow = Build<32, 32, 64, 4, 1, true>;
-using General = Build<128, 128, 272, 1, 2, false>;
+// the general build's layouts: weights resident in shared memory, up to 4
+// teams a block (128 registers a thread); streamed from device memory, a
+// team a block, for 4 blocks an SM (128 registers), 2 or 1 (255)
+using Resident = Build<128, 128, 272, 4, 1, true>;
+using Streamed4 = Build<128, 128, 272, 1, 4, false>;
+using Streamed2 = Build<128, 128, 272, 1, 2, false>;
+using Streamed1 = Build<128, 128, 272, 1, 1, false>;
 
 // The LeakyReLU gates of a warp's NM output tiles, a bit each.
 template <int NM>
@@ -472,6 +510,140 @@ __device__ __forceinline__ void apply_gates(float (&y)[NM][4], int cnt,
   }
 }
 
+// ---- the general builds' products: whole weights, in passes ----
+
+// Position of pair p in a whole-weight block of 8 × 8 floats (pair 4g + t
+// = row g, columns 2t, 2t + 1): conflict-free for the forward float2 read
+// and for the transposed reads (rows 2t, 2t + 1 of column g).
+__device__ __forceinline__ int swz_pair(int p) { return p ^ ((p >> 4) << 2); }
+
+template <bool SMEM>
+__device__ __forceinline__ float ld_w(const float* a) {
+  if constexpr (SMEM) return *a; else return __ldg(a);
+}
+
+// This lane's two weights of block (n, k) of a weight packed whole with
+// `ks` column blocks: forward {W[8n + g][8k + 2t], W[8n + g][8k + 2t + 1]};
+// transposed {W[8k + 2t][8n + g], W[8k + 2t + 1][8n + g]} (block (k, n)).
+template <bool TRANSPOSED, bool SMEM>
+__device__ __forceinline__ float2 load_w(const float* P, int ks, int k,
+                                         int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (!TRANSPOSED) {
+    const float* q = P + (n * ks + k) * 64 + 2 * swz_pair(lane);
+    if constexpr (SMEM) return *reinterpret_cast<const float2*>(q);
+    else return __ldg(reinterpret_cast<const float2*>(q));
+  } else {
+    const float* blk = P + (k * ks + n) * 64 + (g & 1);
+    return make_float2(ld_w<SMEM>(blk + 2 * swz_pair(8 * t + (g >> 1))),
+                       ld_w<SMEM>(blk + 2 * swz_pair(8 * t + 4 + (g >> 1))));
+  }
+}
+
+// team_product on whole weights: each k-step's B operands split here into
+// the hi and lo pack_fragments stores.  With RING ≥ 0 the weights of the
+// next D = max(1, RING / NM) k-steps are loaded while this one's products
+// run (D · NM float2 in registers); with RING < 0 each k-step loads its
+// own.  Bit for bit team_product's sums.
+template <int PASSES, bool TRANSPOSED, bool SMEM, int RING, int NM>
+__device__ __forceinline__ void team_product_w(const float* r0,
+                                               const float* r1, int ks,
+                                               const float* P, int pks,
+                                               int first, int cnt,
+                                               float (&y)[NM][4]) {
+  constexpr int D = RING / NM > 1 ? RING / NM : 1;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[i][e] = 0.f;
+  if (cnt <= 0) return;
+  float2 w[D][NM];
+  if constexpr (RING >= 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int i = 0; i < NM; ++i)
+        if (d < ks && i < cnt)
+          w[d][i] = load_w<TRANSPOSED, SMEM>(P, pks, d, first + TEAM * i);
+  }
+  for (int k0 = 0; k0 < ks; k0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int k = k0 + d;
+      if (k >= ks) break;
+      const float2 a0 = *reinterpret_cast<const float2*>(r0 + 8 * k + 2 * t);
+      const float2 a1 = *reinterpret_cast<const float2*>(r1 + 8 * k + 2 * t);
+      const float c[4] = {a0.x, a0.y, a1.x, a1.y};
+      uint32_t ah[4], al[4];
+      c_to_a(c, ah, al);
+      float b[NM][4];
+      if constexpr (RING < 0) {
+#pragma unroll
+        for (int i = 0; i < NM; ++i)
+          if (i < cnt)
+            w[d][i] = load_w<TRANSPOSED, SMEM>(P, pks, k, first + TEAM * i);
+      }
+#pragma unroll
+      for (int i = 0; i < NM; ++i) {
+        if (i >= cnt) break;
+        uint32_t h0, l0, h1, l1;
+        split(w[d][i].x, h0, l0);
+        split(w[d][i].y, h1, l1);
+        b[i][0] = __uint_as_float(h0); b[i][1] = __uint_as_float(l0);
+        b[i][2] = __uint_as_float(h1); b[i][3] = __uint_as_float(l1);
+      }
+      if (RING >= 0 && k + D < ks) {
+#pragma unroll
+        for (int i = 0; i < NM; ++i)
+          if (i < cnt)
+            w[d][i] = load_w<TRANSPOSED, SMEM>(P, pks, k + D,
+                                               first + TEAM * i);
+      }
+      kstep_mma<PASSES>(y, cnt, ah, al, b);
+    }
+  }
+}
+
+// Y = A·Wᵀ + bias (LeakyReLU with ACT) for this warp's `cnt` output
+// tiles first + TEAM·i, NP tiles a pass; returns their gates (bits 4i + e,
+// i < NT; 0 without ACT).
+template <int PASSES, bool SMEM, int RING, int NP, bool ACT, int NT>
+__device__ __forceinline__ Gates<NT> forward_w(const float* r0,
+                                               const float* r1, int ks,
+                                               const float* P, int first,
+                                               int cnt, const float* bias,
+                                               float* Y, int ldy) {
+  Gates<NT> gates = 0;
+  for (int i0 = 0; i0 < cnt; i0 += NP) {
+    const int c = cnt - i0 < NP ? cnt - i0 : NP;
+    float h[NP][4];
+    team_product_w<PASSES, false, SMEM, RING>(r0, r1, ks, P, ks,
+                                              first + TEAM * i0, c, h);
+    const auto pass = store_tiles(h, c, first + TEAM * i0, bias, ACT, Y, ldy);
+    if constexpr (ACT) gates |= static_cast<Gates<NT>>(pass) << (4 * i0);
+  }
+  return gates;
+}
+
+// Y = (A·W) through the forward's gates, NP tiles a pass (W packed with
+// `pks` column blocks; A of `ks` k-steps).
+template <int PASSES, bool SMEM, int RING, int NP, int NT>
+__device__ __forceinline__ void backward_w(const float* r0, const float* r1,
+                                           int ks, const float* P, int pks,
+                                           int first, int cnt,
+                                           Gates<NT> gates, float* Y,
+                                           int ldy) {
+  for (int i0 = 0; i0 < cnt; i0 += NP) {
+    const int c = cnt - i0 < NP ? cnt - i0 : NP;
+    float gq[NP][4];
+    team_product_w<PASSES, true, SMEM, RING>(r0, r1, ks, P, pks,
+                                             first + TEAM * i0, c, gq);
+    apply_gates(gq, c, static_cast<Gates<NP>>(gates >> (4 * i0)));
+    store_tiles(gq, c, first + TEAM * i0, nullptr, false, Y, ldy);
+  }
+}
+
 // The phases a timed build reads the clock after (slot CLOCK_SLOTS - 1
 // counts the steps): the decoder forward; the per-joint passes (world
 // quats, FK terms, positions and loss, the per-lane reductions); the aux;
@@ -481,22 +653,52 @@ enum { PH_DEC_FWD, PH_QUATS, PH_FK, PH_LOSS, PH_REDUCE, PH_AUX, PH_SUBTREE,
        PH_QUAT_GRAD, PH_DEC_BWD, PH_ADAM, N_PHASES };
 constexpr int CLOCK_SLOTS = 16;
 
-// The loop over the set bits of joint j's mask m, ascending: the body runs
-// with joint `a` (MW words a joint at most, nw here; word wd at m[wd * J +
-// j]).  With one word it is the loop of the build before the general one,
-// written out, so that the narrow build compiles as that build did.
-#define FOR_EACH_BIT(m, j, a, ...)                                      \
+// acc[c] += buf[(c * J + a) * TILE + pl] (c < NC) over the set bits a of
+// joint j's mask m (nw words a joint, word wd at m[wd * J + j]), ascending:
+// four bits an iteration, their reads issued together, their sums in
+// order (a bit past the last is read but not summed).
+template <int NC>
+__device__ __forceinline__ void mask_sum(const unsigned* m, int J, int nw,
+                                         int j, const float* buf, int pl,
+                                         float (&acc)[NC]) {
+  for (int wd = 0; wd < nw; ++wd) {
+    unsigned msk = m[wd * J + j];
+    while (msk) {
+      int a[4] = {32 * wd + __ffs(msk) - 1};
+      bool ok[4] = {true};
+      msk &= msk - 1;
+#pragma unroll
+      for (int u = 1; u < 4; ++u) {
+        ok[u] = msk != 0;
+        a[u] = ok[u] ? 32 * wd + __ffs(msk) - 1 : a[0];
+        msk &= msk - 1;
+      }
+      float x[4][NC];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) x[u][c] = buf[(c * J + a[u]) * TILE + pl];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (ok[u])
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[c] += x[u][c];
+    }
+  }
+}
+
+// acc[c] += AT(buf, c, a) (c < NC) over the set bits a of joint j's mask
+// m, ascending.  With one word a joint it is the loop of the build before
+// the general one, written out, so that the narrow build compiles as that
+// build did; past that, mask_sum.
+#define MASK_SUM(m, j, buf, acc, NC)                                    \
   if constexpr (BD::MW == 1) {                                          \
     for (unsigned msk = (m)[j]; msk; msk &= msk - 1) {                  \
       const int a = __ffs(msk) - 1;                                     \
-      __VA_ARGS__                                                       \
+      for (int c = 0; c < NC; ++c) acc[c] += AT(buf, c, a);             \
     }                                                                   \
   } else {                                                              \
-    for (int wd = 0; wd < nw; ++wd)                                     \
-      for (unsigned msk = (m)[wd * J + (j)]; msk; msk &= msk - 1) {     \
-        const int a = 32 * wd + __ffs(msk) - 1;                         \
-        __VA_ARGS__                                                     \
-      }                                                                 \
+    mask_sum(m, J, nw, j, buf, pl, acc);                                \
   }
 
 template <class BD, int PASSES, bool TIMED>
@@ -676,29 +878,45 @@ iter_block_kernel(const Params p, const Layout y) {
     }
     Gates<BD::NT1W> gate1;
     Gates<BD::NT2W> gate2;
-    {
-      const int cnt = owned(nt1, w);
-      float h[BD::NT1W][4];
-      team_product<PASSES, false>(r0, r1, ks1, P1, ks1, w, cnt, h);
-      gate1 = store_tiles(h, cnt, w, sb1, true, H1S, ld1);
+    if constexpr (BD::GENERAL) {
+      constexpr bool SW = BD::SMEM_W;
+      constexpr int RG = BD::RING, NP = BD::PASS;
+      gate1 = forward_w<PASSES, SW, RG, NP, true, BD::NT1W>(
+          r0, r1, ks1, P1, w, owned(nt1, w), sb1, H1S, ld1);
+      team_sync(bar);
+      gate2 = forward_w<PASSES, SW, RG, NP, true, BD::NT2W>(
+          H1S + g * ld1, H1S + (g + 8) * ld1, nt1, P2, w, owned(nt2, w), sb2,
+          H2S, ld2);
+      team_sync(bar);
+      forward_w<PASSES, SW, RG, NP, false, 1>(
+          H2S + g * ld2, H2S + (g + 8) * ld2, nt2, P3, w, owned(nt3, w), sb3,
+          HG, ldh);
+      team_sync(bar);
+    } else {
+      {
+        const int cnt = owned(nt1, w);
+        float h[BD::NT1W][4];
+        team_product<PASSES, false>(r0, r1, ks1, P1, ks1, w, cnt, h);
+        gate1 = store_tiles(h, cnt, w, sb1, true, H1S, ld1);
+      }
+      team_sync(bar);
+      {
+        const int cnt = owned(nt2, w);
+        float h[BD::NT2W][4];
+        team_product<PASSES, false>(H1S + g * ld1, H1S + (g + 8) * ld1, nt1,
+                                    P2, nt1, w, cnt, h);
+        gate2 = store_tiles(h, cnt, w, sb2, true, H2S, ld2);
+      }
+      team_sync(bar);
+      for (int i0 = 0, cnt3 = owned(nt3, w); i0 < cnt3; i0 += NG3) {
+        const int cnt = cnt3 - i0 < NG3 ? cnt3 - i0 : NG3;
+        float h[NG3][4];
+        team_product<PASSES, false>(H2S + g * ld2, H2S + (g + 8) * ld2, nt2,
+                                    P3, nt2, w + TEAM * i0, cnt, h);
+        store_tiles(h, cnt, w + TEAM * i0, sb3, false, HG, ldh);
+      }
+      team_sync(bar);
     }
-    team_sync(bar);
-    {
-      const int cnt = owned(nt2, w);
-      float h[BD::NT2W][4];
-      team_product<PASSES, false>(H1S + g * ld1, H1S + (g + 8) * ld1, nt1, P2,
-                                  nt1, w, cnt, h);
-      gate2 = store_tiles(h, cnt, w, sb2, true, H2S, ld2);
-    }
-    team_sync(bar);
-    for (int i0 = 0, cnt3 = owned(nt3, w); i0 < cnt3; i0 += NG3) {
-      const int cnt = cnt3 - i0 < NG3 ? cnt3 - i0 : NG3;
-      float h[NG3][4];
-      team_product<PASSES, false>(H2S + g * ld2, H2S + (g + 8) * ld2, nt2, P3,
-                                  nt2, w + TEAM * i0, cnt, h);
-      store_tiles(h, cnt, w + TEAM * i0, sb3, false, HG, ldh);
-    }
-    team_sync(bar);
     PHASE(PH_DEC_FWD)
 
     // ---------------- per-joint forward ----------------
@@ -752,8 +970,7 @@ iter_block_kernel(const Params p, const Layout y) {
       const float wp = __ldg(p.w_pos + j * p.w_row_stride + bc * p.w_lane_stride);
       const float wr = __ldg(p.w_rot + j * p.w_row_stride + bc * p.w_lane_stride);
       float acc[3] = {0.f, 0.f, 0.f};
-      FOR_EACH_BIT(sanc, j, a,
-        for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);)
+      MASK_SUM(sanc, j, CT, acc, 3)
       float dpos[3];
       for (int c = 0; c < 3; ++c) dpos[c] = acc[c] + wd[c] - tp[c];
       part[0] += wp * (dpos[0] * dpos[0] + dpos[1] * dpos[1] +
@@ -813,8 +1030,7 @@ iter_block_kernel(const Params p, const Layout y) {
     if (write_aux) {
       for (int j = jg; j < J; j += 2 * TEAM) {
         float acc[3] = {0.f, 0.f, 0.f};
-        FOR_EACH_BIT(sanc, j, a,
-          for (int c = 0; c < 3; ++c) acc[c] += AT(CT, c, a);)
+        MASK_SUM(sanc, j, CT, acc, 3)
         for (int c = 0; c < 3; ++c)
           p.a_pos[(static_cast<size_t>(b) * J + j) * 3 + c] = acc[c] + wd[c];
         for (int c = 0; c < 4; ++c)
@@ -847,8 +1063,7 @@ iter_block_kernel(const Params p, const Layout y) {
     // subtree sums of the position grads, sent to the parents' world quats
     for (int j = jg > 0 ? jg : 2 * TEAM; j < J; j += 2 * TEAM) {
       float sub[3] = {0.f, 0.f, 0.f};
-      FOR_EACH_BIT(sdesc, j, d,
-        for (int c = 0; c < 3; ++c) sub[c] += AT(GP, c, d);)
+      MASK_SUM(sdesc, j, GP, sub, 3)
       float pw[4];
       world(spar[j], pw);
       const float off[3] = {soff[j * 3], soff[j * 3 + 1], soff[j * 3 + 2]};
@@ -864,8 +1079,7 @@ iter_block_kernel(const Params p, const Layout y) {
     qconj(W, cW);
     for (int j = jg; j < J; j += 2 * TEAM) {
       float gw[4] = {AT(GW, 0, j), AT(GW, 1, j), AT(GW, 2, j), AT(GW, 3, j)};
-      FOR_EACH_BIT(schild, j, ch,
-        for (int c = 0; c < 4; ++c) gw[c] += AT(CT, c, ch);)
+      MASK_SUM(schild, j, CT, gw, 4)
       if (j == 0) {
         for (int c = 0; c < 4; ++c) gWp[c] += gw[c];
         continue;
@@ -909,29 +1123,44 @@ iter_block_kernel(const Params p, const Layout y) {
     PHASE(PH_QUAT_GRAD)
 
     // ---------------- backward decoder ----------------
-    {
-      const int cnt = owned(nt2, w);
-      float gq[BD::NT2W][4];
-      team_product<PASSES, true>(HG + g * ldh, HG + (g + 8) * ldh, nt3, P3,
-                                 nt2, w, cnt, gq);
-      apply_gates(gq, cnt, gate2);
-      store_tiles(gq, cnt, w, nullptr, false, G2S, ld2);
-    }
-    team_sync(bar);
-    {
-      const int cnt = owned(nt1, w);
-      float gq[BD::NT1W][4];
-      team_product<PASSES, true>(G2S + g * ld2, G2S + (g + 8) * ld2, nt2, P2,
-                                 nt1, w, cnt, gq);
-      apply_gates(gq, cnt, gate1);
-      store_tiles(gq, cnt, w, nullptr, false, G1S, ld1);
-    }
-    team_sync(bar);
     float gz[BD::KS1W][4];
-    team_product<PASSES, true>(G1S + g * ld1, G1S + (g + 8) * ld1, nt1, P1,
-                               ks1, w,
-                               BD::KS1W == 1 ? (owner ? 1 : 0) : owned(ks1, w),
-                               gz);
+    if constexpr (BD::GENERAL) {
+      constexpr bool SW = BD::SMEM_W;
+      constexpr int RG = BD::RING, NP = BD::PASS;
+      backward_w<PASSES, SW, RG, NP, BD::NT2W>(
+          HG + g * ldh, HG + (g + 8) * ldh, nt3, P3, nt2, w, owned(nt2, w),
+          gate2, G2S, ld2);
+      team_sync(bar);
+      backward_w<PASSES, SW, RG, NP, BD::NT1W>(
+          G2S + g * ld2, G2S + (g + 8) * ld2, nt2, P2, nt1, w, owned(nt1, w),
+          gate1, G1S, ld1);
+      team_sync(bar);
+      team_product_w<PASSES, true, SW, RG>(
+          G1S + g * ld1, G1S + (g + 8) * ld1, nt1, P1, ks1, w, owned(ks1, w),
+          gz);
+    } else {
+      {
+        const int cnt = owned(nt2, w);
+        float gq[BD::NT2W][4];
+        team_product<PASSES, true>(HG + g * ldh, HG + (g + 8) * ldh, nt3, P3,
+                                   nt2, w, cnt, gq);
+        apply_gates(gq, cnt, gate2);
+        store_tiles(gq, cnt, w, nullptr, false, G2S, ld2);
+      }
+      team_sync(bar);
+      {
+        const int cnt = owned(nt1, w);
+        float gq[BD::NT1W][4];
+        team_product<PASSES, true>(G2S + g * ld2, G2S + (g + 8) * ld2, nt2,
+                                   P2, nt1, w, cnt, gq);
+        apply_gates(gq, cnt, gate1);
+        store_tiles(gq, cnt, w, nullptr, false, G1S, ld1);
+      }
+      team_sync(bar);
+      team_product<PASSES, true>(
+          G1S + g * ld1, G1S + (g + 8) * ld1, nt1, P1, ks1, w,
+          BD::KS1W == 1 ? (owner ? 1 : 0) : owned(ks1, w), gz);
+    }
     PHASE(PH_DEC_BWD)
 
     // ---------------- Adam, by the latent tiles' owners ----------------
@@ -973,7 +1202,7 @@ iter_block_kernel(const Params p, const Layout y) {
   }
 #undef PHASE
 #undef AT
-#undef FOR_EACH_BIT
+#undef MASK_SUM
 
   if (owner) {
 #pragma unroll
@@ -1025,9 +1254,9 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
   y.nt1 = tiles8(p.H1);
   y.nt2 = tiles8(p.H2);
   y.nt3 = tiles8(p.H3);
-  y.o_p2 = y.nt1 * y.ks1 * FRAG;
-  y.o_p3 = y.o_p2 + y.nt2 * y.nt1 * FRAG;
-  y.o_b1 = BD::SMEM_W ? y.o_p3 + y.nt3 * y.nt2 * FRAG : 0;
+  y.o_p2 = y.nt1 * y.ks1 * BD::WBLK;
+  y.o_p3 = y.o_p2 + y.nt2 * y.nt1 * BD::WBLK;
+  y.o_b1 = BD::SMEM_W ? y.o_p3 + y.nt3 * y.nt2 * BD::WBLK : 0;
   y.o_b2 = y.o_b1 + 8 * y.nt1;
   y.o_b3 = y.o_b2 + 8 * y.nt2;
   y.o_sq = y.o_b3 + 8 * y.nt3;
@@ -1059,9 +1288,10 @@ Layout make_layout(const Params& p, int sms, int smem_limit) {
   return y;
 }
 
+// The layout, shared bytes and grid of a launch at p's sizes, with the
+// kernel's dynamic shared memory set to fit; returns a cudaError_t.
 template <class BD, int PASSES, bool TIMED>
-int launch(const void* params, void* stream) {
-  const Params& p = *static_cast<const Params*>(params);
+int prepare(const Params& p, Layout& y, size_t& smem, int& grid) {
   if (p.J < 1 || p.J > BD::MAXJ || p.L < 1 || p.L > BD::MAXL || p.H1 < 1 ||
       p.H1 > BD::MAXH || p.H2 < 1 || p.H2 > BD::MAXH ||
       p.H3 != 4 * p.J + 3 || p.B < 1 || p.sync_k < 0)
@@ -1074,21 +1304,57 @@ int launch(const void* params, void* stream) {
     err = cudaDeviceGetAttribute(
         &smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Layout y = make_layout<BD>(p, sms, smem_limit);
+  y = make_layout<BD>(p, sms, smem_limit);
   if (y.teams < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (static_cast<size_t>(y.o_team) + static_cast<size_t>(y.teams) *
-                                           y.team_floats) * sizeof(float);
+  smem = (static_cast<size_t>(y.o_team) + static_cast<size_t>(y.teams) *
+                                              y.team_floats) * sizeof(float);
   err = cudaFuncSetAttribute(iter_block_kernel<BD, PASSES, TIMED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.B + TILE - 1) / TILE;
-  const int grid = (tiles + y.teams - 1) / y.teams;
+  grid = (tiles + y.teams - 1) / y.teams;
+  return static_cast<int>(err);
+}
+
+template <class BD, int PASSES, bool TIMED>
+int launch(const void* params, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  Layout y;
+  size_t smem = 0;
+  int grid = 0;
+  const int err = prepare<BD, PASSES, TIMED>(p, y, smem, grid);
+  if (err != 0) return err;
   iter_block_kernel<BD, PASSES, TIMED>
       <<<grid, y.teams * TEAM_THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(p, y);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What a launch of the 3xTF32 kernel at p's sizes takes, as the card
+// reports it: out[0..4] = registers a thread (cudaFuncGetAttributes),
+// threads a block, shared bytes a block, blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks.
+template <class BD>
+int launch_config(const void* params, int* out) {
+  const Params& p = *static_cast<const Params*>(params);
+  Layout y;
+  size_t smem = 0;
+  int grid = 0;
+  const int err = prepare<BD, 3, false>(p, y, smem, grid);
+  if (err != 0) return err;
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaFuncGetAttributes(&attr, iter_block_kernel<BD, 3, false>);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, iter_block_kernel<BD, 3, false>, y.teams * TEAM_THREADS,
+        smem);
+  out[0] = attr.numRegs;
+  out[1] = y.teams * TEAM_THREADS;
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  out[4] = grid;
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -1119,24 +1385,111 @@ extern "C" int iter_block_timed(const void* params, void* stream) {
   return launch<Narrow, 3, true>(params, stream);
 }
 
-// The general build (J ≤ 128, L ≤ 128, H1/H2 ≤ 272), its TF32 control and
+// The general build (J ≤ 128, L ≤ 128, H1/H2 ≤ 272) in its layouts:
+// weights resident in shared memory (up to 4 teams a block, as many as
+// fit beside them) or streamed from device memory (a team a block, at
+// most 4 or 2 blocks an SM); the wrapper picks
+// (drag/iter_kernel.py:general_layout).  Each with its TF32 control and
 // its timed build, as above.
-extern "C" int iter_block_general(const void* params, void* stream) {
-  return launch<General, 3, false>(params, stream);
+extern "C" int iter_block_resident(const void* params, void* stream) {
+  return launch<Resident, 3, false>(params, stream);
 }
 
-extern "C" int iter_block_general_tf32(const void* params, void* stream) {
-  return launch<General, 1, false>(params, stream);
+extern "C" int iter_block_resident_tf32(const void* params, void* stream) {
+  return launch<Resident, 1, false>(params, stream);
 }
 
-extern "C" int iter_block_general_timed(const void* params, void* stream) {
-  return launch<General, 3, true>(params, stream);
+extern "C" int iter_block_resident_timed(const void* params, void* stream) {
+  return launch<Resident, 3, true>(params, stream);
+}
+
+extern "C" int iter_block_streamed4(const void* params, void* stream) {
+  return launch<Streamed4, 3, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed4_tf32(const void* params, void* stream) {
+  return launch<Streamed4, 1, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed4_timed(const void* params, void* stream) {
+  return launch<Streamed4, 3, true>(params, stream);
+}
+
+extern "C" int iter_block_streamed2(const void* params, void* stream) {
+  return launch<Streamed2, 3, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed2_tf32(const void* params, void* stream) {
+  return launch<Streamed2, 1, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed2_timed(const void* params, void* stream) {
+  return launch<Streamed2, 3, true>(params, stream);
+}
+
+extern "C" int iter_block_streamed1(const void* params, void* stream) {
+  return launch<Streamed1, 3, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed1_tf32(const void* params, void* stream) {
+  return launch<Streamed1, 1, false>(params, stream);
+}
+
+extern "C" int iter_block_streamed1_timed(const void* params, void* stream) {
+  return launch<Streamed1, 3, true>(params, stream);
+}
+
+// Each kernel's launch at p's sizes (launch_config above).
+extern "C" int iter_block_config(const void* params, int* out) {
+  return launch_config<Narrow>(params, out);
+}
+
+extern "C" int iter_block_resident_config(const void* params, int* out) {
+  return launch_config<Resident>(params, out);
+}
+
+extern "C" int iter_block_streamed4_config(const void* params, int* out) {
+  return launch_config<Streamed4>(params, out);
+}
+
+extern "C" int iter_block_streamed2_config(const void* params, int* out) {
+  return launch_config<Streamed2>(params, out);
+}
+
+extern "C" int iter_block_streamed1_config(const void* params, int* out) {
+  return launch_config<Streamed1>(params, out);
 }
 
 // A build's limits (general = 0: the narrow build; else the general):
 // limits[0..2] = joints, latent dims, hidden widths.
 extern "C" void iter_block_limits(int general, int* limits) {
-  limits[0] = general ? General::MAXJ : Narrow::MAXJ;
-  limits[1] = general ? General::MAXL : Narrow::MAXL;
-  limits[2] = general ? General::MAXH : Narrow::MAXH;
+  static_assert(Resident::MAXJ == Streamed4::MAXJ &&
+                Resident::MAXL == Streamed4::MAXL &&
+                Resident::MAXH == Streamed4::MAXH &&
+                Streamed2::MAXJ == Streamed4::MAXJ &&
+                Streamed2::MAXL == Streamed4::MAXL &&
+                Streamed2::MAXH == Streamed4::MAXH &&
+                Streamed1::MAXJ == Streamed4::MAXJ &&
+                Streamed1::MAXL == Streamed4::MAXL &&
+                Streamed1::MAXH == Streamed4::MAXH, "one general build");
+  limits[0] = general ? Resident::MAXJ : Narrow::MAXJ;
+  limits[1] = general ? Resident::MAXL : Narrow::MAXL;
+  limits[2] = general ? Resident::MAXH : Narrow::MAXH;
+}
+
+// The current device's SMs, shared memory a block may opt in to and shared
+// memory an SM has (out[0..2]); returns a cudaError_t.  The wrapper picks
+// the general build's layout from these.
+extern "C" int iter_block_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        out + 2, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  return static_cast<int>(err);
 }

@@ -7,15 +7,20 @@ inputs, same ``_OptCarry`` out.  On CUDA tensors it launches
 its transpose on the tensor cores in 3xTF32, the sync_k loop inside the
 kernel, the gradient written by hand), which also writes the aux of each
 lane's last forward: no plain code runs.  The kernel has two builds: the
-narrow one (``NARROW``: J, L, H1/H2 up to 32, 32, 64, its weights in shared
-memory) wherever a model fits it, else the general one (``GENERAL``: up
-to 128, 128, 272, its weights read from device memory); past that the
+narrow one (``NARROW``: J, L, H1/H2 up to 32, 32, 64, its weights split in
+shared memory) wherever a model fits it, else the general one
+(``GENERAL``: up to 128, 128, 272, its weights packed whole and split in
+registers) in the layout :func:`general_layout` picks for the batch:
+"resident" (the weights in shared memory, several teams a block) or
+"streamed4" / "streamed2" / "streamed1" (read from device memory, a team
+a block, built for the blocks an SM it gets); past the limits the
 wrapper raises before any launch.  On CPU tensors it runs the plain twin
 ``fast_iter.run_block`` at any shape, which rebuilds the aux with
 ``fast_iter.aux_at`` as the JAX module does in XLA
 (``iter_kernel.py:359-368``).  ``COUNTS`` (shared with ``fast_iter``)
 counts the narrow build's launches, plain calls and aux rebuilds;
-``GENERAL_COUNTS`` the general build's launches.
+``GENERAL_COUNTS`` the general build's launches, ``LAYOUT_COUNTS`` them
+by layout.
 """
 
 from __future__ import annotations
@@ -33,10 +38,14 @@ from dragposer_tpu_torch.ops.temporal_fused import split_tf32
 
 COUNTS = fast_iter.COUNTS
 GENERAL_COUNTS = _build.KernelCounts("K1_general")
+LAYOUTS = ("resident", "streamed4", "streamed2", "streamed1")
+LAYOUT_COUNTS = {name: _build.KernelCounts(f"K1_general_{name}")
+                 for name in LAYOUTS}
 NARROW = (32, 32, 64)      # the narrow build's J, L, H1/H2 limits
 GENERAL = (128, 128, 272)  # the general build's
 TILE_LANES = 16    # lanes of a tile (the M of mma.m16n8k8)
 TEAM_WARPS = 4     # warps that share a tile's work
+MAX_TEAMS_SM = 4   # the general build's teams an SM: 128 registers a thread
 
 
 class KernelContext(NamedTuple):
@@ -48,7 +57,8 @@ class KernelContext(NamedTuple):
     b2: Any        # (H2,)
     W3: Any        # (4J+3, H2) component-major quat rows, then disp
     b3: Any        # (4J+3,)
-    frags: Any     # W1, W2, W3 as split mma fragments (pack_fragments)
+    frags: Any     # W1, W2, W3 packed for the build the sizes take:
+                   # pack_fragments (narrow), pack_weights (general)
     sq: Any        # (4, J)
     mq: Any        # (4, J)
     sd: Any        # (3,)
@@ -92,6 +102,44 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
+def pair_position(p):
+    """Where weight pair ``p`` (0..31) sits in a whole-weight block: swizzled
+    so that the general build's forward (float2) and transposed (two
+    floats) reads are both free of shared-memory bank conflicts."""
+    return p ^ ((p >> 4) << 2)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``w`` (O, I) of ``Y = X wᵀ`` whole, as the general build
+    reads it: O and I padded with zeros to multiples of 8; block (n, k) of
+    32 × 2 floats for each out tile n and in tile k; in it, pair p = 4g + t
+    at position ``pair_position(p)`` holds w[8n + g, 8k + 2t] and w[8n + g,
+    8k + 2t + 1].  The kernel splits each into the hi and lo that
+    :func:`pack_fragments` stores.  Shape (O8/8, I8/8, 32, 2)."""
+    O, I = w.shape
+    o8, i8 = -(-O // 8) * 8, -(-I // 8) * 8
+    padded = torch.zeros((o8, i8), dtype=torch.float32, device=w.device)
+    padded[:O, :I] = w
+    p = torch.arange(32, device=w.device)
+    rows = torch.arange(o8 // 8, device=w.device)[:, None, None] * 8 + p // 4
+    cols = torch.arange(i8 // 8, device=w.device)[None, :, None] * 8 \
+        + 2 * (p % 4)
+    vals = torch.stack([padded[rows, cols], padded[rows, cols + 1]], dim=-1)
+    out = torch.empty_like(vals)
+    out[:, :, pair_position(p)] = vals
+    return out.contiguous()
+
+
+def _fits(limits: tuple, J: int, L: int, H1: int, H2: int) -> bool:
+    mj, ml, mh = limits
+    return J <= mj and L <= ml and max(H1, H2) <= mh
+
+
+def _packs_whole(J: int, L: int, H1: int, H2: int) -> bool:
+    """Whether these sizes take the general build (weights packed whole)."""
+    return not _fits(NARROW, J, L, H1, H2)
+
+
 def topology_masks(parents) -> np.ndarray:
     """(3W, J) bit masks of joints, W = ceil(J / 32) 32-bit words a mask
     (joint a is bit a % 32 of word a // 32): rows 0..W-1 the ancestors of j
@@ -129,11 +177,12 @@ def make_kernel_context(ctx: fast_iter.FastContext) -> KernelContext:
     W1, W2, W3 = c(ctx.W1), c(ctx.W2), c(ctx.W3p)
     topo = np.concatenate((parents[None].astype(np.int32),
                            topology_masks(parents).view(np.int32)))
+    pack = pack_weights if _packs_whole(J, W1.shape[1], W1.shape[0],
+                                        W2.shape[0]) else pack_fragments
     return KernelContext(
         W1=W1, b1=c(ctx.b1[:, 0]), W2=W2, b2=c(ctx.b2[:, 0]),
         W3=W3, b3=c(ctx.b3p[:, 0]),
-        frags=torch.cat([pack_fragments(w).reshape(-1)
-                         for w in (W1, W2, W3)]),
+        frags=torch.cat([pack(w).reshape(-1) for w in (W1, W2, W3)]),
         sq=c(ctx.sq[..., 0]), mq=c(ctx.mq[..., 0]),
         sd=c(ctx.sd[:, 0]), md=c(ctx.md[:, 0]),
         offs=c(ctx.offs[..., 0].T),
@@ -182,12 +231,24 @@ class _Params(ctypes.Structure):
 _ENTRIES = ("iter_block", "iter_block_tf32", "iter_block_timed")
 
 
+def _entry(entry: str, build: str) -> str:
+    """The C entry of ``entry`` (an ``_ENTRIES`` name) for a build or a
+    general layout: ``iter_block_resident_tf32`` and the like."""
+    return entry if build == "narrow" else entry.replace("block",
+                                                         f"block_{build}")
+
+
 def _declare(lib):
-    for name in _ENTRIES:
-        for entry in (getattr(lib, name),
-                      getattr(lib, name.replace("block", "block_general"))):
+    for build in ("narrow", *LAYOUTS):
+        for name in _ENTRIES:
+            entry = getattr(lib, _entry(name, build))
             entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             entry.restype = ctypes.c_int
+        config = getattr(lib, _entry("iter_block", build) + "_config")
+        config.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        config.restype = ctypes.c_int
+    lib.iter_block_device_limits.argtypes = [ctypes.c_void_p]
+    lib.iter_block_device_limits.restype = ctypes.c_int
     lib.iter_block_params_size.restype = ctypes.c_int
     lib.iter_block_tile_lanes.restype = ctypes.c_int
     lib.iter_block_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -212,8 +273,8 @@ def build_for(J: int, L: int, H1: int, H2: int) -> str:
     they fit ``NARROW``, else ``"general"`` where they fit ``GENERAL``;
     past that a ``ValueError`` naming the limit (the plain twin on the CPU
     takes any size)."""
-    for name, (mj, ml, mh) in (("narrow", NARROW), ("general", GENERAL)):
-        if J <= mj and L <= ml and max(H1, H2) <= mh:
+    for name, limits in (("narrow", NARROW), ("general", GENERAL)):
+        if _fits(limits, J, L, H1, H2):
             return name
     mj, ml, mh = GENERAL
     raise ValueError(f"K1 takes J ≤ {mj}, L ≤ {ml}, hidden ≤ {mh} (its "
@@ -223,6 +284,145 @@ def build_for(J: int, L: int, H1: int, H2: int) -> str:
 def _build_of(kctx: KernelContext, opt: eng._OptCarry) -> str:
     return build_for(kctx.topo.shape[1], opt.latent.shape[1],
                      kctx.W1.shape[0], kctx.W2.shape[0])
+
+
+def _stride(n: int, r: int) -> int:
+    """The row stride ≥ n with stride ≡ r (mod 32) (``stride`` in
+    ``csrc/iter_block.cu``)."""
+    return n + (r - n) % 32
+
+
+def smem_floats(J: int, L: int, H1: int, H2: int, block: int) -> tuple:
+    """K1's shared memory in floats as ``make_layout`` lays it out:
+    (the packed weights at ``block`` floats an 8 × 8 block, the constants,
+    one team's scratch)."""
+    ks1, nt1, nt2, nt3 = (-(-n // 8) for n in (L, H1, H2, 4 * J + 3))
+    weights = (nt1 * ks1 + nt2 * nt1 + nt3 * nt2) * block
+    consts = 8 * (nt1 + nt2 + nt3) + 11 * J + 8 + (1 + 3 * -(-J // 32)) * J
+    ldz, ldh = 8 * ks1, _stride(8 * nt3, 2)
+    acts = TILE_LANES * (_stride(8 * nt1, 8) + _stride(8 * nt2, 8))
+    team = (TILE_LANES * (5 * ldz + ldh) + TEAM_WARPS * 6 * TILE_LANES
+            + max(16 * J * TILE_LANES, acts))
+    return weights, consts, team
+
+
+class Layout(NamedTuple):
+    """A launch of the general build: its layout, teams (tiles of 16
+    lanes) a block, blocks an SM holds and shared-memory bytes a block."""
+
+    name: str
+    teams: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+RESERVED_SMEM = 1024   # shared memory the card reserves for each block
+
+
+def general_layout(J: int, L: int, H1: int, H2: int, B: int, sms: int,
+                   smem_block: int, smem_sm: int, prefer: str = None
+                   ) -> Layout:
+    """The layout of the general build for B lanes on a card of ``sms``
+    SMs with ``smem_block`` bytes of shared memory a block may opt in to
+    and ``smem_sm`` an SM has.  "resident": the weights in shared memory
+    once a block, read by as many teams as fit beside them (at most
+    ``MAX_TEAMS_SM`` and as many as give each SM a block, as
+    ``make_layout`` picks), 128 registers a thread; "streamed<N>": a team
+    a block, its weights read from device memory, built for the N blocks
+    an SM its shared memory allows (4 where it holds 3 or more, at 128
+    registers a thread; 2 or 1 at 255, with more tiles a pass at 1; see
+    ``Build`` in ``csrc/iter_block.cu``).  The weights are resident where
+    that block holds two teams (or every team the batch needs) and puts no
+    fewer teams to work on an SM than the streamed layout would.
+    ``prefer`` names a layout to take wherever it fits (to time one
+    against the other)."""
+    weights, consts, team = smem_floats(J, L, H1, H2, 64)
+    tiles = -(-B // TILE_LANES)
+    need = max(1, min(MAX_TEAMS_SM, -(-tiles // sms)))   # teams an SM
+
+    def fit(base: int, teams: int) -> int:
+        while teams and 4 * (base + teams * team) > smem_block:
+            teams -= 1
+        return teams
+
+    def layout(name: str, base: int, teams: int, regs_blocks: int):
+        smem = 4 * (base + teams * team)
+        return Layout(name, teams, min(smem_sm // (smem + RESERVED_SMEM),
+                                       regs_blocks), smem)
+
+    base = -(-consts // 4) * 4
+    fits = dict.fromkeys(LAYOUTS)
+    streamed = None
+    if fit(base, 1):
+        for n in (4, 2, 1):
+            fits[f"streamed{n}"] = layout(f"streamed{n}", base, 1, n)
+        blocks = fits["streamed4"].blocks_per_sm
+        streamed = fits[f"streamed{4 if blocks >= 3 else blocks}"]
+    rbase = -(-(weights + consts) // 4) * 4
+    teams = fit(rbase, need)
+    if teams:
+        fits["resident"] = layout("resident", rbase, teams,
+                                  MAX_TEAMS_SM // teams)
+    if prefer is not None and fits[prefer] is not None:
+        return fits[prefer]
+    resident = fits["resident"]
+    if resident and teams >= min(2, need) and (
+            streamed is None or min(teams * resident.blocks_per_sm, need)
+            >= min(streamed.blocks_per_sm, need)):
+        return resident
+    if streamed is None:
+        raise ValueError(f"K1's general build does not fit {smem_block} "
+                         f"bytes of shared memory at J={J}, L={L}")
+    return streamed
+
+
+_DEVICE_LIMITS: dict = {}
+
+
+def device_limits(device: torch.device) -> tuple:
+    """(SMs, shared memory a block may opt in to, shared memory an SM) of
+    a CUDA device, read once."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _DEVICE_LIMITS:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            _build.check(_library().iter_block_device_limits(out),
+                         "iter_block_device_limits")
+        _DEVICE_LIMITS[index] = tuple(out)
+    return _DEVICE_LIMITS[index]
+
+
+def launch_build(kctx: KernelContext, opt: eng._OptCarry) -> str:
+    """The kernel a launch on CUDA tensors takes: "narrow", or the general
+    build's layout (one of ``LAYOUTS``); raises past the limits."""
+    if _build_of(kctx, opt) == "narrow":
+        return "narrow"
+    B, L = opt.latent.shape
+    return general_layout(kctx.topo.shape[1], L, kctx.W1.shape[0],
+                          kctx.W2.shape[0], B,
+                          *device_limits(opt.latent.device)).name
+
+
+def launch_config(kctx: KernelContext, opt: eng._OptCarry) -> dict:
+    """What the launch for these inputs takes, as the card reports it
+    (CUDA only): its kernel (:func:`launch_build`), registers a thread
+    (``cudaFuncGetAttributes``), threads and shared-memory bytes a block,
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    blocks."""
+    build = launch_build(kctx, opt)
+    p = _Params()
+    p.B, p.L = opt.latent.shape
+    p.J = kctx.topo.shape[1]
+    p.H1, p.H2, p.H3 = kctx.W1.shape[0], kctx.W2.shape[0], kctx.W3.shape[0]
+    out = (ctypes.c_int * 5)()
+    entry = _entry("iter_block", build) + "_config"
+    with torch.cuda.device(opt.latent.device):
+        _build.check(getattr(_library(), entry)(ctypes.addressof(p), out),
+                     entry)
+    return {"kernel": build, **dict(zip(
+        ("registers", "threads", "shared_bytes", "blocks_per_sm", "blocks"),
+        out))}
 
 
 def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
@@ -240,10 +440,13 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
                  "sd", "md", "offs", "w_pos", "w_rot", "n_ee"):
         x = getattr(kctx, name)
         _build.check_tensor(name, x, x.shape, dev, f32)
-    n_frags = sum(128 * (-(-w.shape[0] // 8)) * (-(-w.shape[1] // 8))
-                  for w in (kctx.W1, kctx.W2, kctx.W3))
+    whole = _packs_whole(J, L, kctx.W1.shape[0], kctx.W2.shape[0])
+    n_frags = sum((64 if whole else 128) * (-(-w.shape[0] // 8))
+                  * (-(-w.shape[1] // 8)) for w in (kctx.W1, kctx.W2, kctx.W3))
     if kctx.frags.shape != (n_frags,):
-        raise ValueError("frags must be pack_fragments of W1, W2, W3")
+        raise ValueError("frags must be "
+                         + ("pack_weights" if whole else "pack_fragments")
+                         + " of W1, W2, W3")
     _build.check_tensor("topo", kctx.topo, (1 + 3 * -(-J // 32), J), dev,
                         i32)
     if kctx.w_pos.shape[1] not in (1, B) or kctx.w_pos.shape != (
@@ -265,12 +468,13 @@ def _check_inputs(kctx: KernelContext, opt: eng._OptCarry, lane_active,
 
 def _launch(entry: str, kctx: KernelContext, hyper: eng.DragHyper,
             sync_k: int, opt: eng._OptCarry, lane_active, global_rot, tposT,
-            trotT, target_latent, clocks=None) -> eng._OptCarry:
+            trotT, target_latent, clocks=None) -> tuple:
     """Fill ``Params`` (inputs already checked), launch ``entry`` of the
-    build the sizes take (:func:`build_for`; raises past its limits) on the
-    current stream, and return the new carry with the kernel's aux."""
-    if _build_of(kctx, opt) == "general":
-        entry = entry.replace("block", "block_general")
+    kernel the sizes take (:func:`launch_build`; raises past its limits)
+    on the current stream; returns that kernel's name and the new carry
+    with the kernel's aux."""
+    build = launch_build(kctx, opt)
+    entry = _entry(entry, build)
     B, L = opt.latent.shape
     J = kctx.topo.shape[1]
     H1, H2, H3 = kctx.W1.shape[0], kctx.W2.shape[0], kctx.W3.shape[0]
@@ -316,7 +520,7 @@ def _launch(entry: str, kctx: KernelContext, hyper: eng.DragHyper,
         world_displacement=out["a_wd"], displacement=out["a_disp"],
         world_rotation=out["a_wr"], positions=out["a_pos"],
         pose=out["a_pose"])
-    return eng._OptCarry(
+    return build, eng._OptCarry(
         latent=out["z"], m=out["m"], v=out["v"], t=out["t"],
         prev_loss=out["prev"], loss_pos=out["lp"], loss_rot=out["lr"],
         loss_incr=out["li"], decoded_latent=out["dec"], aux=aux)
@@ -332,10 +536,14 @@ def run_block_fused(ctx: fast_iter.FastContext, kctx: KernelContext,
     if not opt.latent.is_cuda:
         return fast_iter.run_block(ctx, hyper, sync_k, opt, lane_active,
                                    state, tposT, trotT, target_latent)
-    general = _build_of(kctx, opt) == "general"
-    out = _launch("iter_block", kctx, hyper, sync_k, opt, lane_active,
-                  state.global_rot, tposT, trotT, target_latent)
-    (GENERAL_COUNTS if general else COUNTS).kernel += 1
+    build, out = _launch("iter_block", kctx, hyper, sync_k, opt,
+                         lane_active, state.global_rot, tposT, trotT,
+                         target_latent)
+    if build == "narrow":
+        COUNTS.kernel += 1
+    else:
+        GENERAL_COUNTS.kernel += 1
+        LAYOUT_COUNTS[build].kernel += 1
     return out
 
 
@@ -350,7 +558,7 @@ def run_block_tf32(ctx: fast_iter.FastContext, kctx: KernelContext,
     if not opt.latent.is_cuda:
         raise ValueError("the TF32 control is a CUDA kernel")
     return _launch("iter_block_tf32", kctx, hyper, sync_k, opt, lane_active,
-                   state.global_rot, tposT, trotT, target_latent)
+                   state.global_rot, tposT, trotT, target_latent)[1]
 
 
 PHASES = ("decoder forward", "world quats", "FK terms", "positions and loss",
@@ -371,10 +579,11 @@ def phase_cycles(ctx: fast_iter.FastContext, kctx: KernelContext,
     warps = -(-B // TILE_LANES) * TEAM_WARPS
     clocks = torch.zeros((warps, _CLOCK_SLOTS), dtype=torch.int64,
                          device=opt.latent.device)
-    _launch("iter_block_timed", kctx, hyper, sync_k, opt, lane_active,
-            state.global_rot, tposT, trotT, target_latent, clocks)
+    build = _launch("iter_block_timed", kctx, hyper, sync_k, opt,
+                    lane_active, state.global_rot, tposT, trotT,
+                    target_latent, clocks)[0]
     c = clocks.double().cpu()
     steps = float(c[:, -1].sum())
-    return {"warp_steps": steps,
+    return {"kernel": build, "warp_steps": steps,
             "cycles_per_warp_step": {name: float(c[:, i].sum()) / steps
                                      for i, name in enumerate(PHASES)}}

@@ -17,8 +17,9 @@ card against the CPU (K2 alone) and ``run_batch`` against the pipelined
 path (K1 + K2); K2 at the realtime rollouts' lengths (16 and 30 decoder
 steps) and phases [16]-[17] at small sizes: a ``RealtimeSession`` and a
 ``RealtimeBatch`` frame on the card against the CPU; K1's general build
-on chain and latent-48 models (up to its limits: 128 joints, latent 128)
-and its refusal past them, and phases [19]-[21] at small sizes.
+on chain and latent-48 models (up to its limits: 128 joints, latent 128),
+its two layouts equal bit for bit, and its refusal past them, and phases
+[19]-[21] at small sizes.
 """
 
 import pytest
@@ -377,6 +378,37 @@ def test_k1_general_build_refuses_past_its_limits(engines):
     with pytest.raises(ValueError, match="general build"):
         iter_kernel.run_block_fused(args[0], args[1], engine.hyper, 1,
                                     *args[2:])
+
+
+@pytest.mark.parametrize("n_joints,latent", [(33, 24), (22, 48)])
+def test_k1_general_layouts_agree_bit_for_bit(engines, n_joints, latent):
+    """The general build's layouts (weights resident in shared memory, or
+    streamed from device memory in each register class) form the same
+    sums: their carries and aux are equal bit for bit."""
+    from dragposer_tpu_torch.drag import iter_kernel
+
+    engine = chip_smoke.wide_engine(n_joints, latent)[0]
+    args = chip_smoke.k1_inputs(engine, 1000)
+    outs = {}
+    for name in iter_kernel.LAYOUTS:
+        with chip_smoke.k1_layout(name):
+            assert iter_kernel.launch_build(args[1], args[2]) == name
+            outs[name] = iter_kernel.run_block_fused(
+                args[0], args[1], engine.hyper, 24, *args[2:])
+    a = outs["resident"]
+    for b in outs.values():
+        for n in chip_smoke.K1_OPT:
+            assert torch.equal(getattr(a, n), getattr(b, n)), n
+        for n in chip_smoke.K1_AUX:
+            assert torch.equal(getattr(a.aux, n), getattr(b.aux, n)), n
+
+
+def test_chain_path_card_matches_cpu(engines):
+    """Phase [19]'s chain path at a small size: the pipelined path on the
+    33-joint chain on the general build, and the card against the CPU at
+    one step a frame."""
+    r = chip_smoke.chain_path(B=64, T=24)
+    assert r["ok"], r
 
 
 def test_wide_path_card_matches_cpu(engines):

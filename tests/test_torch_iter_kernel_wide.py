@@ -208,10 +208,12 @@ def test_kernel_context_on_the_cpu_takes_any_width(n_joints, latent):
     torch.testing.assert_close(got.latent, ref.latent, rtol=0, atol=0)
     W = -(-n_joints // 32)
     assert kctx.topo.shape == (1 + 3 * W, n_joints)
+    narrow = n_joints <= 32 and latent <= 32 and max(H1, H2) <= 64
+    # split fragments for the narrow build, whole weights for the general
     assert kctx.frags.numel() == sum(
-        128 * (-(-w.shape[0] // 8)) * (-(-w.shape[1] // 8))
-        for w in (kctx.W1, kctx.W2, kctx.W3))
-    if n_joints <= 32 and latent <= 32 and max(H1, H2) <= 64:
+        (128 if narrow else 64) * (-(-w.shape[0] // 8))
+        * (-(-w.shape[1] // 8)) for w in (kctx.W1, kctx.W2, kctx.W3))
+    if narrow:
         assert ik.build_for(n_joints, latent, H1, H2) == "narrow"
     elif n_joints <= 128:
         assert ik.build_for(n_joints, latent, H1, H2) == "general"
