@@ -35,6 +35,8 @@ from typing import Dict, List
 
 import torch
 
+from dragposer_tpu_torch import tracing
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 NATIVE = _PKG / "native"
@@ -54,21 +56,54 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 
 _NAMED_COUNTS: Dict[str, "KernelCounts"] = {}
+_LOGGED_COUNTS: Dict[str, "KernelCounts"] = {}
 
 
 class KernelCounts:
-    """Launch counters of one kernel and of its plain twin (plain ints).
-    A counter made with a ``name`` is reported by :func:`kernel_launches`."""
+    """Launch counters of one kernel and of its plain twin (plain ints),
+    and ``log``, the records of the launches made while a profiler records
+    (``tracing.recording``).  A counter made with a ``name`` is reported by
+    :func:`kernel_launches`, one made with a ``log_name`` only by
+    :func:`launch_log`."""
 
-    def __init__(self, name: str | None = None):
+    def __init__(self, name: str | None = None,
+                 log_name: str | None = None):
         self.kernel = 0
         self.plain = 0
+        self.log: List[dict] = []
         if name is not None:
             _NAMED_COUNTS[name] = self
+        if name or log_name:
+            _LOGGED_COUNTS[log_name or name] = self
 
     def reset(self):
         self.kernel = 0
         self.plain = 0
+        self.log.clear()
+
+    def launched(self, plain: bool = False, **record) -> None:
+        """Count a launch (``plain``: a call of the twin) and, while a
+        profiler records, keep ``record``: host ints and references to
+        tensors the caller made, never read here."""
+        if plain:
+            self.plain += 1
+        else:
+            self.kernel += 1
+        if tracing.recording():
+            self.log.append(record)
+
+
+def launch_log(*names: str) -> List[dict]:
+    """The launch records of the counters ``names``, in that order (empty
+    for a name no imported module has made)."""
+    return [r for n in names if n in _LOGGED_COUNTS
+            for r in _LOGGED_COUNTS[n].log]
+
+
+def clear_launch_logs() -> None:
+    """Empty every counter's launch records (the counts stay)."""
+    for c in _LOGGED_COUNTS.values():
+        c.log.clear()
 
 
 def kernel_launches() -> dict:

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import threading
 import time
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from dragposer_tpu_torch import config as cfg
-from dragposer_tpu_torch import export, metrics
+from dragposer_tpu_torch import _build, export, metrics, tracing
 from dragposer_tpu_torch.data import encoding
 from dragposer_tpu_torch.drag import constraints as constraints_mod
 from dragposer_tpu_torch.drag import hypotheses
@@ -406,16 +407,23 @@ def _export_batched(poses, global_pos, elapsed, files, lengths, bvhs, means,
 @contextlib.contextmanager
 def _profiled(directory: str, device: torch.device):
     """A ``torch.profiler`` trace of the block (the card too on CUDA),
-    written to ``directory/trace.json`` (Chrome trace format)."""
+    written to ``directory/trace.json`` (Chrome trace format), with the
+    program's ``dragposer.*`` spans; and the totals of the kernels' launch
+    records made meanwhile (``tracing.counter_totals``) in
+    ``directory/counters.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    _build.clear_launch_logs()
     with profile(activities=activities) as prof:
         yield
     os.makedirs(directory, exist_ok=True)
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    with open(os.path.join(directory, "counters.json"), "w") as f:
+        json.dump(tracing.counter_totals(), f, indent=1)
+    _build.clear_launch_logs()
 
 
 def main(argv=None):
@@ -434,8 +442,10 @@ def main(argv=None):
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--save-dir", default="data")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="write a torch.profiler trace of the run to "
-                             "DIR/trace.json")
+                        help="write a torch.profiler trace of the run "
+                             "(with the dragposer.* spans) to "
+                             "DIR/trace.json and the launch counters' "
+                             "totals to DIR/counters.json")
     parser.add_argument("--batch", action="store_true",
                         help="reconstruct all files concurrently in one "
                              "pipelined batch")
@@ -516,7 +526,7 @@ def main(argv=None):
                     verbose=args.verbose, downsample_gt=args.downsample_gt,
                     **search)[:2])
     if args.profile:
-        print(f"profiler trace written to {args.profile}")
+        print(f"profiler trace and counters written to {args.profile}")
     return results
 
 

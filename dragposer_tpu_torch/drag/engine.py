@@ -25,7 +25,10 @@ reference behaviours the JAX module lists hold here too:
 The anchor takes its gradient with ``torch.autograd`` (the JAX anchor's
 ``jax.value_and_grad``), never through kernel K1 or its twin
 ``fast_iter``: that independence makes it the oracle of the fast path.  Its
-rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).
+rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).  A
+frame's phases, the anchor's iterations and the rollout are spans of a
+profiler's trace (``tracing.span``), and ``ROLLOUTS`` logs each rollout
+while a profiler records.
 """
 
 from __future__ import annotations
@@ -37,11 +40,17 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dragposer_tpu_torch import _build
 from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops import fk, quat, temporal_fused
 from dragposer_tpu_torch.ops.topology import Skeleton
 from dragposer_tpu_torch.parallel.mesh import map_tree
+from dragposer_tpu_torch.tracing import span
+
+# the rollouts :func:`_rollout_where_needed` runs; while a profiler records,
+# each one's lanes run and the masks its needed lanes are reduced from
+ROLLOUTS = _build.KernelCounts(log_name="rollout")
 
 
 class DragHyper(NamedTuple):
@@ -214,30 +223,38 @@ def rollout_lane_budget(batch: int, window: int) -> int:
 
 def _rollout_where_needed(model: DragModel, hyper: DragHyper, tparam,
                           lat, disp_acc, heights, token0, need,
-                          target_buffer):
+                          target_buffer, frame=None, limit=None):
     """Run the rollout only where ``need`` and return ``target_buffer`` with
     those lanes' rows replaced.  At window 0 the budget is the whole batch,
     so this is one full-batch rollout and a select, as in the JAX package.
     For windowed configs the needing lanes (≤ budget) are gathered into a
     sub-batch; the per-lane arithmetic of K2 does not depend on the other
-    lanes, so the result equals the full-batch one."""
+    lanes, so the result equals the full-batch one.  ``frame`` and
+    ``limit`` (B,), where given, are only logged (``ROLLOUTS``): a needing
+    lane begins a real frame where ``frame < limit``."""
     B = token0.shape[0]
     r = rollout_lane_budget(B, hyper.temporal_future_window)
     if r < B:
-        idx = torch.nonzero(need).flatten()
-        n = int(idx.numel())
+        with span("dragposer.rollout.wait"):
+            idx = torch.nonzero(need).flatten()
+            n = int(idx.numel())
         if n == 0:
             return target_buffer
         if n <= r:
-            sub = _temporal_rollout_core_T(model, hyper, tparam, lat[idx],
-                                           disp_acc[idx], heights[idx],
-                                           token0[idx])
-            out = target_buffer.clone()
-            out[idx] = sub
-            return out
-    new_buffer = _temporal_rollout_core_T(model, hyper, tparam, lat,
-                                          disp_acc, heights, token0)
-    return torch.where(need[:, None, None], new_buffer, target_buffer)
+            with span("dragposer.rollout"):
+                ROLLOUTS.launched(lanes=n, need=need, frame=frame,
+                                  limit=limit)
+                sub = _temporal_rollout_core_T(
+                    model, hyper, tparam, lat[idx], disp_acc[idx],
+                    heights[idx], token0[idx])
+                out = target_buffer.clone()
+                out[idx] = sub
+                return out
+    with span("dragposer.rollout"):
+        ROLLOUTS.launched(lanes=B, need=need, frame=frame, limit=limit)
+        new_buffer = _temporal_rollout_core_T(model, hyper, tparam, lat,
+                                              disp_acc, heights, token0)
+        return torch.where(need[:, None, None], new_buffer, target_buffer)
 
 
 def _rollout_inputs(state: DragState, hyper: DragHyper):
@@ -273,15 +290,20 @@ def _begin_frame(model: DragModel, hyper: DragHyper, tparam,
     check, as the JAX anchor's ``lax.cond``)."""
     if not hyper.use_temporal:
         return state.target_buffer, torch.zeros_like(state.latent)
-    need = state.current_index == 0
-    if hyper.temporal_future_window == 0 or bool(need.any()):
-        target_buffer = _rollout_where_needed(
-            model, hyper, tparam, *_rollout_inputs(state, hyper), need,
-            state.target_buffer)
-    else:
-        target_buffer = state.target_buffer
-    ar = torch.arange(state.latent.shape[0], device=state.latent.device)
-    return target_buffer, target_buffer[ar, state.current_index.long()]
+    with span("dragposer.frame.begin"):
+        need = state.current_index == 0
+        run = hyper.temporal_future_window == 0
+        if not run:
+            with span("dragposer.frame.begin.wait"):
+                run = bool(need.any())
+        if run:
+            target_buffer = _rollout_where_needed(
+                model, hyper, tparam, *_rollout_inputs(state, hyper), need,
+                state.target_buffer)
+        else:
+            target_buffer = state.target_buffer
+        ar = torch.arange(state.latent.shape[0], device=state.latent.device)
+        return target_buffer, target_buffer[ar, state.current_index.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -449,13 +471,15 @@ def _optimize(latent0, model: DragModel, statics, skeleton: Skeleton,
     check of the rule once per iteration."""
     c = _opt_init(latent0, skeleton.n_joints)
     while True:
-        active = _opt_cond(c, hyper)
-        if not bool(active.any()):
-            return c
-        new = _opt_body(c, model, statics, skeleton, hyper, global_pos,
-                        global_rot, target_ee_pos, target_ee_rot,
-                        target_latent)
-        c = _select(active, new, c)
+        with span("dragposer.anchor.wait"):
+            active = _opt_cond(c, hyper)
+            if not bool(active.any()):
+                return c
+        with span("dragposer.anchor.step"):
+            new = _opt_body(c, model, statics, skeleton, hyper, global_pos,
+                            global_rot, target_ee_pos, target_ee_rot,
+                            target_latent)
+            c = _select(active, new, c)
 
 
 def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
@@ -495,24 +519,27 @@ def _finish_frame(model: DragModel, hyper: DragHyper, state: DragState,
                   final: _OptCarry, target_buffer, target_ee_pos):
     """End-of-frame work on the (B, P, ·) ring buffers: advance, then
     shift each buffer by one row."""
-    B = state.latent.shape[0]
-    adj = (target_ee_pos[:, hyper.joint_adjustment[1]]
-           if hyper.joint_adjustment is not None
-           else torch.zeros(B, 3, device=state.latent.device))
-    global_pos, global_rot, displacement, heights, current_index, out = \
-        _advance_core(model, hyper, state.global_pos, state.current_index,
-                      final, adj)
-    def shift(buf, row):
-        return torch.cat((buf[:, 1:], row[:, None]), dim=1)
+    with span("dragposer.frame.finish"):
+        B = state.latent.shape[0]
+        adj = (target_ee_pos[:, hyper.joint_adjustment[1]]
+               if hyper.joint_adjustment is not None
+               else torch.zeros(B, 3, device=state.latent.device))
+        global_pos, global_rot, displacement, heights, current_index, \
+            out = _advance_core(model, hyper, state.global_pos,
+                                state.current_index, final, adj)
 
-    new_state = DragState(
-        latent=final.latent, global_pos=global_pos, global_rot=global_rot,
-        latent_buffer=shift(state.latent_buffer, final.decoded_latent),
-        displacement_buffer=shift(state.displacement_buffer, displacement),
-        heights_buffer=shift(state.heights_buffer, heights),
-        target_buffer=target_buffer, current_index=current_index)
-    return new_state, out
+        def shift(buf, row):
+            return torch.cat((buf[:, 1:], row[:, None]), dim=1)
 
+        new_state = DragState(
+            latent=final.latent, global_pos=global_pos,
+            global_rot=global_rot,
+            latent_buffer=shift(state.latent_buffer, final.decoded_latent),
+            displacement_buffer=shift(state.displacement_buffer,
+                                      displacement),
+            heights_buffer=shift(state.heights_buffer, heights),
+            target_buffer=target_buffer, current_index=current_index)
+        return new_state, out
 
 def frame_step(model: DragModel, statics, skeleton: Skeleton,
                hyper: DragHyper, tparam, state: DragState, target_ee_pos,
@@ -569,8 +596,9 @@ def run_sequence(model, statics, skeleton, hyper: DragHyper, tparam,
 
 def to_host(out: FrameOutput) -> FrameOutput:
     """``out``'s leaves as numpy arrays (waits for the device)."""
-    return FrameOutput(*[x.cpu().numpy() if torch.is_tensor(x) else x
-                         for x in out])
+    with span("dragposer.to_host"), span("dragposer.to_host.wait"):
+        return FrameOutput(*[x.cpu().numpy() if torch.is_tensor(x) else x
+                             for x in out])
 
 
 def _lead(tree):
@@ -701,9 +729,10 @@ class DragEngine:
                       target_ee_rot_quats):
         new, out = self.step(state, target_ee_pos, quat.to_matrix(
             self.tensor(target_ee_rot_quats)))
-        mean_q, std_q = _quat_stats(self.model)
-        rs = (out.pose * std_q + mean_q).reshape(-1, 4)
-        return new, fk.from_root_quat(rs, self.skeleton), out.global_pos
+        with span("dragposer.frame.reply"):
+            mean_q, std_q = _quat_stats(self.model)
+            rs = (out.pose * std_q + mean_q).reshape(-1, 4)
+            return new, fk.from_root_quat(rs, self.skeleton), out.global_pos
 
     def run_batch_pipelined(self, states: DragState, dqs_norm, gt_pos,
                             gt_rot, sync_k: int = 24, lengths=None,

@@ -259,7 +259,6 @@ def run_block(ctx: FastContext, hyper: eng.DragHyper, sync_k: int,
     Targets arrive transposed: ``tposT`` (J, 3, B), ``trotT`` (J, 3, 3, B).
     (The JAX function's ``model``/``statics``/``skeleton`` arguments serve
     constraints, which take the pipeline's per-lane loop here.)"""
-    COUNTS.plain += 1
     grT = state.global_rot.T
     tlatT = target_latent.T
     z, m, v, dec = opt.latent.T, opt.m.T, opt.v.T, opt.decoded_latent.T
@@ -291,6 +290,7 @@ def run_block(ctx: FastContext, hyper: eng.DragHyper, sync_k: int,
         lp = torch.where(active, f.loss_pos.detach(), lp)
         lr = torch.where(active, f.loss_rot.detach(), lr)
     aux = aux_at(ctx, hyper, dec, grT, tposT, trotT, tlatT)
+    COUNTS.launched(plain=True, lanes=z.shape[1], t0=opt.t, t1=t)
     return eng._OptCarry(
         latent=z.T, m=m.T, v=v.T, t=t, prev_loss=prev, loss_pos=lp,
         loss_rot=lr, loss_incr=li, decoded_latent=dec.T, aux=aux)

@@ -20,7 +20,9 @@ wrapper raises before any launch.  On CPU tensors it runs the plain twin
 (``iter_kernel.py:359-368``).  ``COUNTS`` (shared with ``fast_iter``)
 counts the narrow build's launches, plain calls and aux rebuilds;
 ``GENERAL_COUNTS`` the general build's launches, ``LAYOUT_COUNTS`` them
-by layout.
+by layout; while a profiler records, ``COUNTS.log`` and
+``GENERAL_COUNTS.log`` keep each launch's lanes and its ``t`` before and
+after (lane-steps taken: ``t1 - t0``).
 """
 
 from __future__ import annotations
@@ -539,10 +541,11 @@ def run_block_fused(ctx: fast_iter.FastContext, kctx: KernelContext,
     build, out = _launch("iter_block", kctx, hyper, sync_k, opt,
                          lane_active, state.global_rot, tposT, trotT,
                          target_latent)
+    record = dict(lanes=opt.latent.shape[0], t0=opt.t, t1=out.t)
     if build == "narrow":
-        COUNTS.kernel += 1
+        COUNTS.launched(**record)
     else:
-        GENERAL_COUNTS.kernel += 1
+        GENERAL_COUNTS.launched(**record)
         LAYOUT_COUNTS[build].kernel += 1
     return out
 

@@ -9,13 +9,17 @@ kernel K2, ground-truth targets, fresh Adam).  A straggler frame in one
 lane does not stall the others.  The pose is decoded once, after the loop,
 from the stored per-frame latents.
 
-The loop's ``any(frame < limit)`` is a host check once per block.  The
-inner loop is K1 (the batch-in-lanes fast path) unless ``hyper.constraints``
-is set or the decoder is unfolded: then each block runs up to ``sync_k``
-masked iterations of the anchor's ``engine._opt_body`` (autograd, targets
-per lane (B, J, ·)), ending early, by a host check an iteration, once no
-lane is active (the JAX package's ``fast=False``).  K2 does the rollout in
-both.
+The loop's ``any(frame < limit)`` is a host check once per block, made at
+the end of the block before (the first in the prologue).  The inner loop
+is K1 (the batch-in-lanes fast path) unless ``hyper.constraints`` is set or
+the decoder is unfolded: then each block runs up to ``sync_k`` masked
+iterations of the anchor's ``engine._opt_body`` (autograd, targets per
+lane (B, J, ·)), ending early, by a host check an iteration, once no lane
+is active (the JAX package's ``fast=False``).  K2 does the rollout in
+both.  Each block and its phases are spans of a profiler's trace
+(``tracing.span``: ``dragposer.block`` and ``dragposer.block.k1`` /
+``.finish`` / ``.begin`` / ``.targets`` / ``.wait``), inside
+``dragposer.pipeline``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+from dragposer_tpu_torch.tracing import span
 
 
 class _FlatState(NamedTuple):
@@ -86,6 +91,13 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
     step (``False``); ``None`` takes K1 whenever it can (no constraints, a
     folded decoder), and ``True`` where it cannot raises.
     Returns (final states, FrameOutput with leaves (B, T, ...))."""
+    with span("dragposer.pipeline"):
+        return _run(model, statics, skeleton, hyper, tparam, states,
+                    dqs_norm, gt_pos, gt_rot, sync_k, lengths, fast)
+
+
+def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
+         gt_rot, sync_k, lengths, fast):
     eligible = not hyper.constraints and eng._is_folded(model.decoder)
     if fast is None:
         fast = eligible
@@ -114,7 +126,7 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
     idx_d = idx(acc[..., None] * 3 + np.arange(3))
     idx_h = idx(past[:-1, None] * H + np.arange(H)[None, :])
 
-    def begin_all(s: _FlatState, began):
+    def begin_all(s: _FlatState, began, f_idx):
         if not hyper.use_temporal:
             return s.target_buffer, torch.zeros_like(s.latent)
         latp = s.latent_buffer[:, idx_lat].reshape(B, len(past), L)
@@ -123,7 +135,8 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
         heights = s.heights_buffer[:, idx_h].reshape(B, len(past) - 1, H)
         tbuf = eng._rollout_where_needed(
             model, hyper, tparam, latp[:, :-1], disp_acc, heights,
-            latp[:, -1], began & (s.current_index == 0), s.target_buffer)
+            latp[:, -1], began & (s.current_index == 0), s.target_buffer,
+            frame=f_idx, limit=limit)
         return tbuf, tbuf[ar, s.current_index.long()]
 
     def targets_all(s: _FlatState, f_idx):
@@ -140,12 +153,15 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
                                                lane_active, s, tpos, trot,
                                                tlat)
         for _ in range(sync_k):
-            active = eng._opt_cond(opt, hyper) & lane_active
-            if not bool(active.any()):
-                break
-            new = eng._opt_body(opt, model, statics, skeleton, hyper,
-                                s.global_pos, s.global_rot, tpos, trot, tlat)
-            opt = eng._select(active, new, opt)
+            with span("dragposer.anchor.wait"):
+                active = eng._opt_cond(opt, hyper) & lane_active
+                if not bool(active.any()):
+                    break
+            with span("dragposer.anchor.step"):
+                new = eng._opt_body(opt, model, statics, skeleton, hyper,
+                                    s.global_pos, s.global_rot, tpos, trot,
+                                    tlat)
+                opt = eng._select(active, new, opt)
         return opt
 
     def finish(s: _FlatState, opt: eng._OptCarry, tbuf, adj):
@@ -168,62 +184,82 @@ def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
         return tpos[ee].T if fast else tpos[:, ee]
 
     # prologue: every lane begins frame 0
-    state = _flatten_state(states)
-    frame = torch.zeros(B, dtype=torch.int32, device=dev)
-    tbuf, tlat = begin_all(state, torch.ones(B, dtype=torch.bool, device=dev))
-    tpos, trot = targets_all(state, frame)
-    opt = eng._opt_init(state.latent, skeleton.n_joints)
-    outs = {
-        "latent": torch.zeros(B, T, L, device=dev),
-        "global_pos": torch.zeros(B, T, 3, device=dev),
-        "global_rot": torch.zeros(B, T, 4, device=dev),
-        "iterations": torch.zeros(B, T, dtype=torch.int32, device=dev),
-        "loss_pos": torch.zeros(B, T, device=dev),
-        "loss_rot": torch.zeros(B, T, device=dev),
-    }
+    with span("dragposer.pipeline.prologue"):
+        state = _flatten_state(states)
+        frame = torch.zeros(B, dtype=torch.int32, device=dev)
+        tbuf, tlat = begin_all(state, torch.ones(B, dtype=torch.bool,
+                                                 device=dev), frame)
+        tpos, trot = targets_all(state, frame)
+        opt = eng._opt_init(state.latent, skeleton.n_joints)
+        outs = {
+            "latent": torch.zeros(B, T, L, device=dev),
+            "global_pos": torch.zeros(B, T, 3, device=dev),
+            "global_rot": torch.zeros(B, T, 4, device=dev),
+            "iterations": torch.zeros(B, T, dtype=torch.int32, device=dev),
+            "loss_pos": torch.zeros(B, T, device=dev),
+            "loss_rot": torch.zeros(B, T, device=dev),
+        }
+    with span("dragposer.pipeline.wait"):
+        go = bool((frame < limit).any())
 
-    # global loop: K masked Adam steps, then a sync point
-    while bool((frame < limit).any()):
-        lane_active = frame < limit
-        opt = inner_loop(opt, lane_active, state, tpos, trot, tlat)
-        done = ~eng._opt_cond(opt, hyper) & lane_active
+    # global loop: K masked Adam steps, then a sync point (the check of
+    # whether another block runs, at the block's end)
+    while go:
+        with span("dragposer.block"):
+            with span("dragposer.block.k1"):
+                lane_active = frame < limit
+                opt = inner_loop(opt, lane_active, state, tpos, trot, tlat)
 
-        new_state = finish(state, opt, tbuf, adj_targets(tpos))
-        state = eng._select(done, new_state, state)
-        f_cl = torch.clamp(frame, max=T - 1).long()
-        _write_rows(outs["latent"], f_cl, done, opt.decoded_latent)
-        _write_rows(outs["global_pos"], f_cl, done, new_state.global_pos)
-        _write_rows(outs["global_rot"], f_cl, done, new_state.global_rot)
-        _write_rows(outs["iterations"], f_cl, done, opt.t)
-        _write_rows(outs["loss_pos"], f_cl, done, opt.loss_pos)
-        _write_rows(outs["loss_rot"], f_cl, done, opt.loss_rot)
+            with span("dragposer.block.finish"):
+                done = ~eng._opt_cond(opt, hyper) & lane_active
+                new_state = finish(state, opt, tbuf, adj_targets(tpos))
+                state = eng._select(done, new_state, state)
+                f_cl = torch.clamp(frame, max=T - 1).long()
+                _write_rows(outs["latent"], f_cl, done, opt.decoded_latent)
+                _write_rows(outs["global_pos"], f_cl, done,
+                            new_state.global_pos)
+                _write_rows(outs["global_rot"], f_cl, done,
+                            new_state.global_rot)
+                _write_rows(outs["iterations"], f_cl, done, opt.t)
+                _write_rows(outs["loss_pos"], f_cl, done, opt.loss_pos)
+                _write_rows(outs["loss_rot"], f_cl, done, opt.loss_rot)
+                frame = frame + done.to(torch.int32)
 
-        frame = frame + done.to(torch.int32)
-        f_next = torch.clamp(frame, max=T - 1)
-        # advanced lanes begin their next frame; others keep their values
-        tbuf_new, tlat_new = begin_all(state, done)
-        tbuf = eng._select(done, tbuf_new, tbuf)
-        tlat = eng._select(done, tlat_new, tlat)
-        tpos_new, trot_new = targets_all(state, f_next)
-        if fast:    # the lane axis is the last
-            tpos = torch.where(done[None, None, :], tpos_new, tpos)
-            trot = torch.where(done[None, None, None, :], trot_new, trot)
-        else:
-            tpos = eng._select(done, tpos_new, tpos)
-            trot = eng._select(done, trot_new, trot)
-        opt = eng._select(done, eng._opt_init(state.latent,
-                                              skeleton.n_joints), opt)
+            # advanced lanes begin their next frame; others keep their values
+            with span("dragposer.block.begin"):
+                tbuf_new, tlat_new = begin_all(state, done, frame)
+                tbuf = eng._select(done, tbuf_new, tbuf)
+                tlat = eng._select(done, tlat_new, tlat)
+
+            with span("dragposer.block.targets"):
+                f_next = torch.clamp(frame, max=T - 1)
+                tpos_new, trot_new = targets_all(state, f_next)
+                if fast:    # the lane axis is the last
+                    tpos = torch.where(done[None, None, :], tpos_new, tpos)
+                    trot = torch.where(done[None, None, None, :], trot_new,
+                                       trot)
+                else:
+                    tpos = eng._select(done, tpos_new, tpos)
+                    trot = eng._select(done, trot_new, trot)
+                opt = eng._select(done, eng._opt_init(state.latent,
+                                                      skeleton.n_joints), opt)
+
+            with span("dragposer.block.wait"):
+                go = bool((frame < limit).any())
 
     # epilogue: one batched decode of the stored latents (plain matmuls)
-    mean_q, std_q = eng._quat_stats(model)
-    pose_n, _ = eng._decode(model, statics, outs["latent"].reshape(B * T, L))
-    pose = pose_n.reshape(B, T, -1)
-    root = (outs["global_rot"] - mean_q[:4]) / std_q[:4]
-    pose = torch.cat((root, pose[..., 4:]), dim=-1)
-    valid = (torch.arange(T, device=dev)[None, :] < limit[:, None])[..., None]
-    out = eng.FrameOutput(
-        pose=torch.where(valid, pose, 0.0),
-        global_pos=outs["global_pos"], iterations=outs["iterations"],
-        loss_pos=outs["loss_pos"], loss_rot=outs["loss_rot"],
-        latent=torch.where(valid, outs["latent"], 0.0))
+    with span("dragposer.pipeline.epilogue"):
+        mean_q, std_q = eng._quat_stats(model)
+        pose_n, _ = eng._decode(model, statics,
+                                outs["latent"].reshape(B * T, L))
+        pose = pose_n.reshape(B, T, -1)
+        root = (outs["global_rot"] - mean_q[:4]) / std_q[:4]
+        pose = torch.cat((root, pose[..., 4:]), dim=-1)
+        valid = (torch.arange(T, device=dev)[None, :]
+                 < limit[:, None])[..., None]
+        out = eng.FrameOutput(
+            pose=torch.where(valid, pose, 0.0),
+            global_pos=outs["global_pos"], iterations=outs["iterations"],
+            loss_pos=outs["loss_pos"], loss_rot=outs["loss_rot"],
+            latent=torch.where(valid, outs["latent"], 0.0))
     return _unflatten_state(state, P), out

@@ -257,7 +257,8 @@ def forward_plain(packed, enc_in, dec_in, tgt_mask, mm=torch.matmul):
     additive tgt_mask (1, S_dec) or (S_dec, S_dec) → (B, S_dec, 24).
     ``mm`` forms every weight product (:func:`matmul_3xtf32` models the
     kernel's tensor cores); attention scores and values stay float32."""
-    COUNTS.plain += 1
+    COUNTS.launched(plain=True, lanes=enc_in.shape[0],
+                    s_enc=enc_in.shape[1], s_dec=dec_in.shape[1])
     pe = packed["pe"]
     src = mm(enc_in, packed["w_in_enc"]) + packed["b_in_enc"] \
         + pe[: enc_in.shape[1]]
@@ -343,7 +344,7 @@ def forward_kernel(packed, enc_in, dec_in, tgt_mask):
         tgt_mask.data_ptr(), int(tgt_mask.shape[0]), out.data_ptr(), B,
         s_enc, s_dec, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "temporal_forward")
-    COUNTS.kernel += 1
+    COUNTS.launched(lanes=B, s_enc=s_enc, s_dec=s_dec)
     return out
 
 

@@ -47,6 +47,7 @@ from dragposer_tpu_torch.io.bvh import BVH
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops import fk, quat
 from dragposer_tpu_torch.ops.topology import Skeleton
+from dragposer_tpu_torch.tracing import span
 
 
 class RealtimeSession:
@@ -270,14 +271,18 @@ class RealtimeSession:
                   out_pose: np.ndarray, out_global_pos: np.ndarray) -> None:
         """One realtime frame.  target_ee_rot are wxyz quaternions (E, 4).
         The frame is ``DragEngine.step_realtime`` (quaternion targets in,
-        parent-local quaternions out); one copy to the host at its end."""
-        self._ensure_engine()
-        j = self.skeleton.n_joints
-        tpos, trot = self.dense_targets(target_ee_pos, target_ee_rot)
-        self._state, local, global_pos = self._engine.step_realtime(
-            self._state, tpos, trot)
-        np.copyto(out_pose, local.cpu().numpy().reshape(j, 4))
-        out_global_pos[0, :] = global_pos.cpu().numpy()
+        parent-local quaternions out); one copy to the host at its end.
+        The frame is the ``dragposer.frame`` span of a profiler's trace."""
+        with span("dragposer.frame"):
+            self._ensure_engine()
+            j = self.skeleton.n_joints
+            tpos, trot = self.dense_targets(target_ee_pos, target_ee_rot)
+            self._state, local, global_pos = self._engine.step_realtime(
+                self._state, tpos, trot)
+            with span("dragposer.frame.reply"), \
+                    span("dragposer.frame.reply.wait"):
+                np.copyto(out_pose, local.cpu().numpy().reshape(j, 4))
+                out_global_pos[0, :] = global_pos.cpu().numpy()
 
 
 def make_batched_frame(engine: eng.DragEngine):
