@@ -83,13 +83,14 @@ class KernelCounts:
 
     def launched(self, plain: bool = False, **record) -> None:
         """Count a launch (``plain``: a call of the twin) and, while a
-        profiler records, keep ``record``: host ints and references to
-        tensors the caller made, never read here."""
+        profiler records, keep ``record`` with ``plain`` added: host ints
+        and references to tensors the caller made, never read here."""
         if plain:
             self.plain += 1
         else:
             self.kernel += 1
         if tracing.recording():
+            record["plain"] = plain
             self.log.append(record)
 
 

@@ -25,15 +25,28 @@ reference behaviours the JAX module lists hold here too:
 The anchor takes its gradient with ``torch.autograd`` (the JAX anchor's
 ``jax.value_and_grad``), never through kernel K1 or its twin
 ``fast_iter``: that independence makes it the oracle of the fast path.  Its
-rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).  A
-frame's phases, the anchor's iterations and the rollout are spans of a
-profiler's trace (``tracing.span``), and ``ROLLOUTS`` logs each rollout
-while a profiler records.
+rollout is kernel K2 on a CUDA tensor (``temporal_fused.forward``).
+
+On the card a ``DragEngine`` runs each Adam iteration of the anchor as the
+replay of one CUDA graph (:class:`_AnchorGraph`: the stop rule, the loss,
+its autograd gradient, Adam and the select, captured once per engine and
+lane count): the eager loop's kernels in its order, with copies into the
+graph's buffers, so the two agree bit for bit; the stop rule's host check
+stays once an iteration, and the graphs' buffers are held by one thread
+and stream at a time (:class:`_AnchorGraphs`).  Eager autograd steps
+(:class:`_EagerLoop`) run everything else: CPU tensors, an unfolded
+decoder, and constraints (a user's callable may read values back to the
+host).  Both run the one loop of :func:`_optimize`.  A frame's phases,
+the anchor's iterations and the rollout are spans of a profiler's trace
+(``tracing.span``); ``ROLLOUTS`` logs each rollout and ``ANCHOR`` each
+anchor iteration while a profiler records.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -45,12 +58,16 @@ from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops import fk, quat, temporal_fused
 from dragposer_tpu_torch.ops.topology import Skeleton
-from dragposer_tpu_torch.parallel.mesh import map_tree
+from dragposer_tpu_torch.parallel.mesh import map_tree, tree_leaves
 from dragposer_tpu_torch.tracing import span
 
 # the rollouts :func:`_rollout_where_needed` runs; while a profiler records,
 # each one's lanes run and the masks its needed lanes are reduced from
 ROLLOUTS = _build.KernelCounts(log_name="rollout")
+# the anchor's iterations in ``_optimize``: a graph replay, or an eager step
+# (``plain``); while a profiler records, each one's lanes and whether its
+# graph was captured in that call (``capture``)
+ANCHOR = _build.KernelCounts(log_name="anchor")
 
 
 class DragHyper(NamedTuple):
@@ -463,23 +480,187 @@ def _opt_body(c: _OptCarry, model: DragModel, statics, skeleton: Skeleton,
                      aux=aux)
 
 
+class _EagerLoop:
+    """The anchor's iterations as eager autograd steps on a carry of its
+    own: ``more`` checks the stop rule on the host, ``step`` runs
+    ``_opt_body`` and selects it over the carry on the lanes whose rule
+    holds."""
+
+    plain, fresh = True, False
+
+    def __init__(self, latent0, model: DragModel, statics,
+                 skeleton: Skeleton, hyper: DragHyper, frame):
+        self.args = (model, statics, skeleton, hyper) + frame
+        self.hyper = hyper
+        self.carry = _opt_init(latent0, skeleton.n_joints)
+
+    def more(self) -> bool:
+        self.active = _opt_cond(self.carry, self.hyper)
+        return bool(self.active.any())
+
+    def step(self) -> None:
+        self.carry = _select(self.active, _opt_body(self.carry, *self.args),
+                             self.carry)
+
+    def result(self) -> _OptCarry:
+        return self.carry
+
+
+def _graphable(latent0, model: DragModel, hyper: DragHyper) -> bool:
+    """Whether an anchor iteration is fixed-shape and graph-safe: CUDA
+    tensors, the folded decoder and no constraint."""
+    return (latent0.is_cuda and _is_folded(model.decoder)
+            and not hyper.constraints)
+
+
+class _AnchorGraph:
+    """The anchor's iteration captured as CUDA graphs for one engine's
+    model, hyperparameters and lane count, over buffers of its own: the
+    frame's inputs (``latent0``, global position and rotation, both
+    targets, the temporal target), the carry and ``flag`` (whether any
+    lane's stop rule holds on the carry).
+
+    * ``start``: the frame's inputs copied in, then the ``reset`` graph:
+      the carry ← ``_opt_init(latent0)``, then ``flag``;
+    * ``step``: the ``step`` graph: ``_opt_cond``, ``_opt_body`` and
+      ``_select`` of the new carry over the old, written back into the
+      carry, then ``flag``;
+    * ``more``: a host read of ``flag``; ``result``: the carry cloned out
+      (the next frame overwrites the buffers).
+
+    The model's tensors are read in place: a mask written with ``copy_``
+    is seen by the next replay.  Both graphs are captured on a stream of
+    their own, after one eager run of each on it (results thrown away), in
+    the mode that lets other threads use the card meanwhile.  ``fresh``
+    until its first replay of ``step``."""
+
+    plain = False
+
+    def __init__(self, model: DragModel, statics, skeleton: Skeleton,
+                 hyper: DragHyper, inputs):
+        self.model, self.statics = model, statics
+        self.skeleton, self.hyper = skeleton, hyper
+        self.inputs = [x.clone() for x in inputs]
+        self.carry = map_tree(torch.clone,
+                              _opt_init(self.inputs[0], skeleton.n_joints))
+        device = self.inputs[0].device
+        self.flag = torch.zeros((), dtype=torch.bool, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._reset()
+            self._step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.reset_graph = self._capture(self._reset, side)
+        self.step_graph = self._capture(self._step, side)
+        self.fresh = True
+
+    @staticmethod
+    def _capture(fn, stream) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            fn()
+        return graph
+
+    def serves(self, model, statics, skeleton, hyper) -> bool:
+        return (self.model is model and self.statics is statics
+                and self.skeleton is skeleton and self.hyper == hyper)
+
+    def _write(self, carry: _OptCarry) -> None:
+        for buf, x in zip(tree_leaves(self.carry), tree_leaves(carry)):
+            buf.copy_(x)
+        self.flag.copy_(_opt_cond(self.carry, self.hyper).any())
+
+    def _reset(self) -> None:
+        self._write(_opt_init(self.inputs[0], self.skeleton.n_joints))
+
+    def _step(self) -> None:
+        c = self.carry
+        active = _opt_cond(c, self.hyper)
+        new = _opt_body(c, self.model, self.statics, self.skeleton,
+                        self.hyper, *self.inputs[1:])
+        self._write(_select(active, new, c))
+
+    def start(self, inputs) -> None:
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.reset_graph.replay()
+
+    def more(self) -> bool:
+        return bool(self.flag)
+
+    def step(self) -> None:
+        self.step_graph.replay()
+
+    def result(self) -> _OptCarry:
+        return map_tree(torch.clone, self.carry)
+
+
+class _AnchorGraphs:
+    """An engine's anchor graphs, one a lane count, held by one thread at
+    a time (the daemon's jobs share engines and run on streams of their
+    own)."""
+
+    def __init__(self):
+        self.by_lanes = {}
+        self.lock = threading.Lock()
+        # recorded on the holder's stream after its last use of the buffers
+        self.released = None
+
+    @contextlib.contextmanager
+    def hold(self, latent0, model, statics, skeleton, hyper, frame):
+        """The graph of ``latent0``'s lane count, captured if it is
+        missing or serves another model or hyperparameters, started on
+        the frame.  The caller's stream first waits for the last holder's
+        work on the buffers; a capture first waits on the host, since the
+        old graph's buffers go back to the allocator."""
+        B = latent0.shape[0]
+        device = latent0.device
+        with self.lock, torch.cuda.device(device):
+            if self.released is None:
+                self.released = torch.cuda.Event()
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.released)
+            g = self.by_lanes.get(B)
+            if g is None or not g.serves(model, statics, skeleton, hyper):
+                self.released.synchronize()
+                g = self.by_lanes[B] = _AnchorGraph(
+                    model, statics, skeleton, hyper, (latent0,) + frame)
+            g.start((latent0,) + frame)
+            try:
+                yield g
+            finally:
+                self.released.record(stream)
+
+
 def _optimize(latent0, model: DragModel, statics, skeleton: Skeleton,
               hyper: DragHyper, global_pos, global_rot, target_ee_pos,
-              target_ee_rot, target_latent) -> _OptCarry:
+              target_ee_rot, target_latent, graphs=None) -> _OptCarry:
     """Fresh Adam from ``latent0`` (B, L) until no lane's stop rule holds.
     Lanes whose rule is false keep their carry; the loop's end is a host
-    check of the rule once per iteration."""
-    c = _opt_init(latent0, skeleton.n_joints)
-    while True:
-        with span("dragposer.anchor.wait"):
-            active = _opt_cond(c, hyper)
-            if not bool(active.any()):
-                return c
-        with span("dragposer.anchor.step"):
-            new = _opt_body(c, model, statics, skeleton, hyper, global_pos,
-                            global_rot, target_ee_pos, target_ee_rot,
-                            target_latent)
-            c = _select(active, new, c)
+    check of the rule once per iteration.  Given an engine's
+    :class:`_AnchorGraphs` and a graph-safe iteration (:func:`_graphable`:
+    CUDA tensors, the folded decoder, no constraint), an iteration is one
+    replay of a CUDA graph and the check a read of one flag; otherwise it
+    is an eager autograd step (:class:`_EagerLoop`)."""
+    args = (latent0, model, statics, skeleton, hyper,
+            (global_pos, global_rot, target_ee_pos, target_ee_rot,
+             target_latent))
+    if graphs is not None and _graphable(latent0, model, hyper):
+        held = graphs.hold(*args)
+    else:
+        held = contextlib.nullcontext(_EagerLoop(*args))
+    with held as loop:
+        while True:
+            with span("dragposer.anchor.wait"):
+                if not loop.more():
+                    return loop.result()
+            with span("dragposer.anchor.step"):
+                ANCHOR.launched(plain=loop.plain, lanes=latent0.shape[0],
+                                capture=loop.fresh)
+                loop.fresh = False
+                loop.step()
 
 
 def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
@@ -543,14 +724,15 @@ def _finish_frame(model: DragModel, hyper: DragHyper, state: DragState,
 
 def frame_step(model: DragModel, statics, skeleton: Skeleton,
                hyper: DragHyper, tparam, state: DragState, target_ee_pos,
-               target_ee_rot):
+               target_ee_rot, graphs=None):
     """One frame of drag optimization on every lane (reference
     ``DragPose.run``): targets (B, J, 3) (any value at inactive joints)
-    and (B, J, 3, 3) → ``(new state, FrameOutput)``."""
+    and (B, J, 3, 3) → ``(new state, FrameOutput)``.  ``graphs``: the
+    engine's anchor graphs (:func:`_optimize`)."""
     target_buffer, target_latent = _begin_frame(model, hyper, tparam, state)
     final = _optimize(state.latent, model, statics, skeleton, hyper,
                       state.global_pos, state.global_rot, target_ee_pos,
-                      target_ee_rot, target_latent)
+                      target_ee_rot, target_latent, graphs)
     return _finish_frame(model, hyper, state, final, target_buffer,
                          target_ee_pos)
 
@@ -572,16 +754,16 @@ def _eval_targets(model: DragModel, skeleton: Skeleton, state,
 
 
 def eval_frame_step(model, statics, skeleton, hyper, tparam, state,
-                    frame_inputs):
+                    frame_inputs, graphs=None):
     dqs_norm, gt_pos, gt_rot = frame_inputs
     tpos, trot = _eval_targets(model, skeleton, state, dqs_norm, gt_pos,
                                gt_rot)
     return frame_step(model, statics, skeleton, hyper, tparam, state, tpos,
-                      trot)
+                      trot, graphs)
 
 
 def run_sequence(model, statics, skeleton, hyper: DragHyper, tparam,
-                 state: DragState, dqs_norm, gt_pos, gt_rot):
+                 state: DragState, dqs_norm, gt_pos, gt_rot, graphs=None):
     """Reconstruct every lane's sequence, frame by frame: dqs_norm
     (B, T, J*8), gt_pos (B, T, 3), gt_rot (B, T, 4) → (final state,
     FrameOutput with leaves (B, T, ...))."""
@@ -589,7 +771,7 @@ def run_sequence(model, statics, skeleton, hyper: DragHyper, tparam,
     for f in range(dqs_norm.shape[1]):
         state, out = eval_frame_step(
             model, statics, skeleton, hyper, tparam, state,
-            (dqs_norm[:, f], gt_pos[:, f], gt_rot[:, f]))
+            (dqs_norm[:, f], gt_pos[:, f], gt_rot[:, f]), graphs)
         outs.append(out)
     return state, FrameOutput(*[torch.stack(x, dim=1) for x in zip(*outs)])
 
@@ -652,6 +834,10 @@ class DragEngine:
       global root position (3,);
     * ``run_batch_pipelined(states, dqs, gp, gr, sync_k, lengths, fast)`` —
       the pipelined batched reconstruction (``drag/pipeline.py``).
+
+    ``run``, ``run_batch``, ``step`` and ``step_realtime`` run the anchor
+    through the engine's own CUDA graphs on the card (:func:`_optimize`),
+    captured at a lane count's first frame; ``replica`` starts with none.
     """
 
     def __init__(self, model: DragModel, statics, skeleton: Skeleton,
@@ -663,6 +849,7 @@ class DragEngine:
         self.hyper = hyper
         self.tparam = tparam
         self._replica_models = {}
+        self._anchor_graphs = _AnchorGraphs()
 
     def replica(self, device) -> "DragEngine":
         """The same engine on another device: every model tensor (the
@@ -679,6 +866,7 @@ class DragEngine:
             self._replica_models[new.device] = (self.model, model)
         new.model = model
         new._replica_models = {}
+        new._anchor_graphs = _AnchorGraphs()
         return new
 
     def tensor(self, a, dtype=torch.float32):
@@ -708,7 +896,8 @@ class DragEngine:
         t = self.tensor
         return run_sequence(self.model, self.statics, self.skeleton,
                             self.hyper, self.tparam, self.on_device(states),
-                            t(dqs_norm), t(gt_pos), t(gt_rot))
+                            t(dqs_norm), t(gt_pos), t(gt_rot),
+                            self._anchor_graphs)
 
     def run(self, state: DragState, dqs_norm, gt_pos, gt_rot):
         t = self.tensor
@@ -722,7 +911,8 @@ class DragEngine:
         new, out = frame_step(self.model, self.statics, self.skeleton,
                               self.hyper, self.tparam,
                               _lead(self.on_device(state)),
-                              t(target_ee_pos)[None], t(target_ee_rot)[None])
+                              t(target_ee_pos)[None], t(target_ee_rot)[None],
+                              self._anchor_graphs)
         return _lane(new), _lane(out)
 
     def step_realtime(self, state: DragState, target_ee_pos,

@@ -10,6 +10,10 @@ composed from the root's child down to the joint), so:
 
 For local-rotation inputs the world rotations are composed level by level
 over the static depth schedule.  All functions broadcast over leading dims.
+The skeleton's constants (the one-hot parent matrix, the offsets, ``A``)
+are device tensors built once per skeleton, dtype and device and kept
+with the skeleton (:func:`_skeleton_tensors`): FK copies nothing from the
+host per call, so the anchor's iteration can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -25,6 +29,21 @@ def _const(a, like):
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
+def _skeleton_tensors(skeleton: Skeleton, like):
+    """The one-hot parent matrix (J, J), the offsets (J, 3) and the
+    ancestor matrix (J, J) of ``skeleton`` as tensors of ``like``'s dtype
+    on its device, uploaded once and kept with the skeleton."""
+    key = (like.device, like.dtype)
+    got = skeleton.tensors.get(key)
+    if got is None:
+        onehot = np.eye(skeleton.n_joints, dtype=np.float32)[
+            np.asarray(skeleton.parents)]
+        got = skeleton.tensors[key] = tuple(
+            _const(a, like) for a in (onehot, skeleton.offsets,
+                                      skeleton.ancestors))
+    return got
+
+
 def _parent_rows(x, skeleton: Skeleton):
     """``x[..., parents[j], :]`` for every joint j, as the product of the
     one-hot parent matrix with ``x``.  The backward of ``index_select``
@@ -33,16 +52,15 @@ def _parent_rows(x, skeleton: Skeleton):
     session's frames then drift apart past 1e-5 within tens of frames; a
     product's backward sums them in a fixed order.  The forward is exact:
     one term of each sum is nonzero."""
-    onehot = np.eye(skeleton.n_joints, dtype=np.float32)[skeleton.parents]
-    return torch.matmul(_const(onehot, x), x)
+    return torch.matmul(_skeleton_tensors(skeleton, x)[0], x)
 
 
 def _positions_from_world(world_rot, root_pos, skeleton: Skeleton):
+    _, offsets, ancestors = _skeleton_tensors(skeleton, world_rot)
     parent_rot = _parent_rows(world_rot, skeleton)
-    offsets = _const(skeleton.offsets, world_rot).expand(
-        world_rot.shape[:-1] + (3,))
-    contrib = quat.mul_vec(parent_rot, offsets)
-    pos = torch.matmul(_const(skeleton.ancestors, world_rot), contrib)
+    contrib = quat.mul_vec(parent_rot,
+                           offsets.expand(world_rot.shape[:-1] + (3,)))
+    pos = torch.matmul(ancestors, contrib)
     return pos + root_pos[..., None, :]
 
 

@@ -244,6 +244,9 @@ class Skeleton:
     names: Tuple[str, ...] = ()
     levels: List[np.ndarray] = field(default_factory=list)
     ancestors: np.ndarray = None  # (J, J) float32
+    # FK's constants as tensors, by (device, dtype) (``ops/fk.py``)
+    tensors: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     @staticmethod
     def build(parents, offsets, names=()) -> "Skeleton":

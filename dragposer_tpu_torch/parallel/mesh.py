@@ -136,6 +136,13 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in the order :func:`map_tree` visits them."""
+    leaves = []
+    map_tree(leaves.append, tree)
+    return leaves
+
+
 def _rank() -> int:
     import torch.distributed as dist
 

@@ -17,10 +17,13 @@ reference ``python/src/run_drag.py`` (same names, shapes and conventions):
 
 A session runs on ``cuda`` unless it is given ``device="cpu"``.  Its frame
 is ``DragEngine.step_realtime``: the per-lane anchor (autograd Adam), whose
-temporal rollout is kernel K2 on the card.  The dense end-effector mask is
-data: a mask edit writes the engine's mask tensors in place, and only an
-actual change of the optimizer parameters or lambdas rebuilds the engine
-(lazily, at the next frame).
+temporal rollout is kernel K2 on the card.  On the card each Adam iteration
+is one replay of the engine's CUDA graph of the iteration, captured in the
+session's ``_prewarm``; on the CPU the anchor's eager loop runs
+(``engine._optimize``).  The dense end-effector mask is data: a mask edit
+writes the engine's mask tensors in place, seen by the next replay, and
+only an actual change of the optimizer parameters or lambdas rebuilds the
+engine (lazily, at the next frame), which captures anew.
 
 :func:`make_batched_step` is the N-avatar frame of :class:`RealtimeBatch`
 and of the daemon's coalesced ticks (:func:`make_coalesced_step`): the
@@ -224,7 +227,8 @@ class RealtimeSession:
     def _prewarm(self):
         """Run one whole ``drag_pose`` now and discard it, so that the
         client's first real frame runs at steady-state latency: kernel
-        loading (and building, on a fresh checkout) lands here.  The
+        loading (and building, on a fresh checkout) and the capture of the
+        anchor's graph land here.  The
         reference DLL sequence (main.cpp:10-41) calls init before the frame
         loop, so the pause lands where a model-load wait is expected."""
         j = self.skeleton.n_joints

@@ -27,8 +27,9 @@ The spans, outermost first:
 * ``dragposer.to_host`` (``.wait``): ``engine.to_host``;
 * ``dragposer.frame``: ``RealtimeSession.drag_pose``, one session frame;
   in it ``dragposer.frame.begin`` (``engine._begin_frame``, its check in
-  ``.wait``), ``dragposer.anchor.step`` (one ``_opt_body`` and select)
-  and ``dragposer.anchor.wait`` (the stop rule's check) an iteration,
+  ``.wait``), ``dragposer.anchor.step`` (one ``_opt_body`` and select,
+  or on the card one replay of the anchor's graph) and
+  ``dragposer.anchor.wait`` (the stop rule's check) an iteration,
   ``dragposer.frame.finish`` (``engine._finish_frame``) and
   ``dragposer.frame.reply`` (``step_realtime``'s FK; ``drag_pose``'s
   copies, in ``.wait``).
@@ -57,13 +58,15 @@ def counter_totals() -> dict:
     """The launch records' totals (a host read of each record's tensors):
     K1's launches, lane-steps taken and lanes × each launch's longest lane;
     K2's launches and lanes run; the rollouts' lanes run and the lanes
-    among them that began a real frame (within the lane's length)."""
+    among them that began a real frame (within the lane's length); the
+    anchor's iterations, those that were graph replays and the captures."""
     from dragposer_tpu_torch import _build
 
     k1 = _build.launch_log("K1", "K1_general")
     steps = [r["t1"].long() - r["t0"].long() for r in k1]
     k2 = _build.launch_log("K2")
     rollouts = _build.launch_log("rollout")
+    anchor = _build.launch_log("anchor")
     return {
         "k1_launches": len(k1),
         "k1_lane_steps": int(sum(int(s.sum()) for s in steps)),
@@ -74,6 +77,9 @@ def counter_totals() -> dict:
         "rollout_lanes": sum(r["lanes"] for r in rollouts),
         "rollout_needed_lanes": int(sum(int(needed_lanes(r))
                                         for r in rollouts)),
+        "anchor_iterations": len(anchor),
+        "anchor_graph_replays": sum(not r["plain"] for r in anchor),
+        "anchor_graph_captures": sum(r["capture"] for r in anchor),
     }
 
 
