@@ -70,11 +70,14 @@ def build_engine(model_dir: str, parents, tracker: cfg.TrackerConfig, *,
                  max_iter: int = EVAL_MAX_ITER,
                  learning_rate: float = EVAL_LR,
                  constraints: str | None = None,
+                 height_indices=cfg.HEIGHT_INDICES,
                  device=None) -> tuple[DragEngine, dict, dict]:
     """Load the checkpoints of ``model_dir`` and build a DragEngine for one
     tracker config on ``device`` (``cuda`` unless ``"cpu"``).
     ``constraints`` is a ``constraints.parse_spec`` string of extra loss
-    terms; ``None`` takes the config's ``default_constraints``."""
+    terms; ``None`` takes the config's ``default_constraints``.
+    ``height_indices``: the joints whose heights the temporal model reads
+    (the example rig's by default; another rig names its own)."""
     params, means, stds = loading.load_generator(model_dir, parents,
                                                  cfg.VAE_PARAM)
     loaded = loading.load_temporal(model_dir) if use_temporal else None
@@ -113,7 +116,7 @@ def build_engine(model_dir: str, parents, tracker: cfg.TrackerConfig, *,
         temporal_future_window=tracker.temporal_future_window,
         sample_step=cfg.TEMPORAL_PARAM["sample_step"],
         past_frames=tuple(cfg.TEMPORAL_PARAM["past_frames"]),
-        height_indices=tuple(cfg.HEIGHT_INDICES),
+        height_indices=tuple(int(j) for j in height_indices),
         use_temporal=use_temporal,
         joint_adjustment=ja,
         joint_adjustment_weight=tracker.joint_adjustment_weight,
@@ -129,14 +132,15 @@ def build_engine(model_dir: str, parents, tracker: cfg.TrackerConfig, *,
 
 
 
-def _encode(path: str, skeleton, means, stds):
+def _encode(path: str, skeleton, means, stds,
+            height_indices=cfg.HEIGHT_INDICES):
     """A BVH file → (bvh, encoded motion, normalized motion)."""
     bvh = BVH().load(path)
     rots, pos, _, offsets, _ = encoding.info_from_bvh(bvh)
     motion = encoding.encode_motion(
         offsets, pos[:, 0, :], rots, skeleton,
         downsample=cfg.VAE_PARAM["downsample"],
-        height_indices=cfg.HEIGHT_INDICES)
+        height_indices=height_indices)
     return bvh, motion, encoding.normalize(motion, means, stds)
 
 
@@ -176,7 +180,8 @@ def evaluate_file(engine: DragEngine, means, stds, skeleton,
     iterations of every frame first).  Returns (MPJPE, MPEEPE, seconds,
     frames)."""
     filename = os.path.basename(input_path)
-    bvh, motion, norm = _encode(input_path, skeleton, means, stds)
+    bvh, motion, norm = _encode(input_path, skeleton, means, stds,
+                                engine.hyper.height_indices)
     n_frames = norm.dqs.shape[0] if max_frames is None \
         else min(max_frames, norm.dqs.shape[0])
     dqs = norm.dqs[:n_frames]
@@ -258,7 +263,8 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
     each lane halts at its own length.  Initial latents are drawn from a
     ``torch.Generator`` seeded with ``seed`` (its numbers differ from the
     JAX package's).  Returns [(MPJPE, MPEEPE)] per file."""
-    encoded = [_encode(path, skeleton, means, stds) for path in files]
+    encoded = [_encode(path, skeleton, means, stds,
+                       engine.hyper.height_indices) for path in files]
     bvhs = [e[0] for e in encoded]
     lengths = [n.dqs.shape[0] if max_frames is None
                else min(max_frames, n.dqs.shape[0]) for _, _, n in encoded]

@@ -88,8 +88,8 @@ HEIGHT_INDICES = (0, 4, 8, 13, 17, 21)
 class TrackerConfig:
     """Which joints act as end effectors and how the drag loss weighs them."""
 
-    mask: Tuple[int, ...]                      # (22,) 0/1
-    weights: Tuple[Tuple[float, float], ...]   # (22, [pos, rot])
+    mask: Tuple[int, ...]                      # (J,) 0/1
+    weights: Tuple[Tuple[float, float], ...]   # (J, [pos, rot])
     enable_joint_adjustment: bool
     joint_adjustment_indices: Tuple[int, int]  # (joint, end-effector slot)
     joint_adjustment_weight: float
@@ -139,7 +139,15 @@ class TrackerConfig:
     @staticmethod
     def from_json(path: str, name: str = "") -> "TrackerConfig":
         with open(path) as f:
-            d = json.load(f)
+            return TrackerConfig.from_dict(json.load(f), name or path)
+
+    @staticmethod
+    def from_dict(d: dict, name: str = "") -> "TrackerConfig":
+        """A configuration in the reference's JSON form, for a skeleton of
+        any size (``mask`` and ``weights`` one entry a joint)."""
+        if len(d["mask"]) != len(d["weights"]):
+            raise ValueError(f"{len(d['mask'])} mask entries but "
+                             f"{len(d['weights'])} weights")
         return TrackerConfig(
             mask=tuple(d["mask"]),
             weights=tuple(tuple(w) for w in d["weights"]),
@@ -148,7 +156,7 @@ class TrackerConfig:
             joint_adjustment_weight=float(d["joint_adjustment_weight"]),
             lambda_temporal=float(d["lambda_temporal"]),
             temporal_future_window=int(d["temporal_future_window"]),
-            name=name or path,
+            name=name or d.get("name", ""),
             # framework extensions (absent from reference config JSONs)
             default_restarts=int(d.get("restarts", 1)),
             default_branch_every=int(d.get("branch_every", 0)),

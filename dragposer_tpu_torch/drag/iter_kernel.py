@@ -22,7 +22,8 @@ counts the narrow build's launches, plain calls and aux rebuilds;
 ``GENERAL_COUNTS`` the general build's launches, ``LAYOUT_COUNTS`` them
 by layout; while a profiler records, ``COUNTS.log`` and
 ``GENERAL_COUNTS.log`` keep each launch's lanes and its ``t`` before and
-after (lane-steps taken: ``t1 - t0``).
+after (lane-steps taken: ``t1 - t0``), the general build's also its
+``layout`` and ``joints``.
 """
 
 from __future__ import annotations
@@ -545,7 +546,8 @@ def run_block_fused(ctx: fast_iter.FastContext, kctx: KernelContext,
     if build == "narrow":
         COUNTS.launched(**record)
     else:
-        GENERAL_COUNTS.launched(**record)
+        GENERAL_COUNTS.launched(layout=build, joints=kctx.topo.shape[1],
+                                **record)
         LAYOUT_COUNTS[build].kernel += 1
     return out
 
