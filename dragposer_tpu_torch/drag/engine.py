@@ -186,6 +186,21 @@ def init_state(model: DragModel, statics: vae.VAEStatics, hyper: DragHyper,
 # Temporal rollout
 # ---------------------------------------------------------------------------
 
+_INDICES = {}
+
+
+def _index_tensor(values, device) -> torch.Tensor:
+    """``values`` (ints) as an int64 tensor on ``device``, made once per
+    values and device and kept: a pageable copy from the host waits for
+    the device, and a CUDA graph cannot take one."""
+    key = (tuple(int(v) for v in values), torch.device(device))
+    found = _INDICES.get(key)
+    if found is None:
+        found = _INDICES[key] = torch.as_tensor(key[0], dtype=torch.int64,
+                                                device=device)
+    return found
+
+
 def _hold_index(window: int, step: int) -> np.ndarray:
     """Target-buffer slot → rollout prediction index (constant hold):
     slot ``k`` holds prediction ``min(k//step + 1, window//step)``."""
@@ -224,8 +239,8 @@ def _temporal_rollout_core_T(model: DragModel, hyper: DragHyper, tparam,
             tokens[:, k + 1] = out_k
         outs[:, k] = out_k
     outs = outs * model.stds_latent + model.means_latent
-    hold = torch.as_tensor(_hold_index(hyper.temporal_future_window, step),
-                           device=token0.device)
+    hold = _index_tensor(_hold_index(hyper.temporal_future_window, step),
+                         token0.device)
     return outs[:, hold]
 
 
@@ -681,7 +696,7 @@ def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
                       * hyper.joint_adjustment_weight)
         global_pos = global_pos + adjustment
         displacement = displacement + adjustment
-    hidx = torch.as_tensor(hyper.height_indices, device=global_pos.device)
+    hidx = _index_tensor(hyper.height_indices, global_pos.device)
     heights = (aux.positions + global_pos[:, None, :])[:, hidx, 1]
     if hyper.temporal_future_window == 0:
         current_index = torch.zeros_like(state_current_index)
@@ -819,6 +834,14 @@ def _on_device(model: DragModel, statics, tparam, device) -> DragModel:
     )
 
 
+def _block_graphs():
+    """A new holder of an engine's pipeline block graph
+    (``pipeline.BlockGraphs``)."""
+    from dragposer_tpu_torch.drag import pipeline
+
+    return pipeline.BlockGraphs()
+
+
 class DragEngine:
     """Drag runtime for a fixed (skeleton, hyper, temporal config) on one
     device (``cuda`` unless ``device="cpu"``).
@@ -837,7 +860,10 @@ class DragEngine:
 
     ``run``, ``run_batch``, ``step`` and ``step_realtime`` run the anchor
     through the engine's own CUDA graphs on the card (:func:`_optimize`),
-    captured at a lane count's first frame; ``replica`` starts with none.
+    captured at a lane count's first frame; ``run_batch_pipelined`` runs
+    each block's bookkeeping through the engine's block graph
+    (``pipeline.BlockGraphs``), captured for a call's shapes and input
+    tensors; ``replica`` starts with none.
     """
 
     def __init__(self, model: DragModel, statics, skeleton: Skeleton,
@@ -850,6 +876,7 @@ class DragEngine:
         self.tparam = tparam
         self._replica_models = {}
         self._anchor_graphs = _AnchorGraphs()
+        self._block_graphs = _block_graphs()
 
     def replica(self, device) -> "DragEngine":
         """The same engine on another device: every model tensor (the
@@ -867,6 +894,7 @@ class DragEngine:
         new.model = model
         new._replica_models = {}
         new._anchor_graphs = _AnchorGraphs()
+        new._block_graphs = _block_graphs()
         return new
 
     def tensor(self, a, dtype=torch.float32):
@@ -935,4 +963,4 @@ class DragEngine:
         return pipeline.run_batch_pipelined(
             self.model, self.statics, self.skeleton, self.hyper, self.tparam,
             states, t(dqs_norm), t(gt_pos), t(gt_rot), sync_k=sync_k,
-            lengths=lengths, fast=fast)
+            lengths=lengths, fast=fast, graphs=self._block_graphs)

@@ -4,10 +4,10 @@
 One global iteration loop runs over the whole batch; each lane owns a frame
 pointer.  Every ``sync_k`` Adam iterations (one launch of kernel K1), lanes
 whose stop rule holds *finish* their frame (global-transform advance, ring
-buffers, compact output write) and *begin* the next (temporal rollout with
-kernel K2, ground-truth targets, fresh Adam).  A straggler frame in one
-lane does not stall the others.  The pose is decoded once, after the loop,
-from the stored per-frame latents.
+buffers, compact output write), take their next frame's ground-truth
+*targets* and a fresh Adam state, and *begin* it (temporal rollout with
+kernel K2).  A straggler frame in one lane does not stall the others.  The
+pose is decoded once, after the loop, from the stored per-frame latents.
 
 The loop's ``any(frame < limit)`` is a host check once per block, made at
 the end of the block before (the first in the prologue).  The inner loop
@@ -16,22 +16,44 @@ the decoder is unfolded: then each block runs up to ``sync_k`` masked
 iterations of the anchor's ``engine._opt_body`` (autograd, targets per
 lane (B, J, ·)), ending early, by a host check an iteration, once no lane
 is active (the JAX package's ``fast=False``).  K2 does the rollout in
-both.  Each block and its phases are spans of a profiler's trace
+both.
+
+A block is K1 (an eager launch), then its bookkeeping (``finish`` and
+``targets``: fixed-shape ops over the batch), then ``begin`` (the rollout,
+eager: its launches of K2 and, at a window, its host check), then the
+loop's check.  Given an engine's :class:`BlockGraphs` and a graph-safe
+block (CUDA tensors and K1), the bookkeeping is one replay of a CUDA graph
+(:class:`_BlockGraph`) over buffers that K1's carry and ``begin``'s
+targets are copied into; otherwise it runs eagerly (:class:`_EagerBlocks`).
+Both run the phases of :class:`_Block` in the same order, so the two agree
+bit for bit.  Each block and its phases are spans of a profiler's trace
 (``tracing.span``: ``dragposer.block`` and ``dragposer.block.k1`` /
-``.finish`` / ``.begin`` / ``.targets`` / ``.wait``), inside
-``dragposer.pipeline``.
+``.finish`` / ``.targets`` (eager) or ``.graph`` (a replay) / ``.begin`` /
+``.wait``), inside ``dragposer.pipeline``; ``BLOCKS`` logs each block
+while a profiler records.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dragposer_tpu_torch import _build, tracing
 from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.drag import fast_iter, iter_kernel
+from dragposer_tpu_torch.parallel.mesh import map_tree, tree_leaves
 from dragposer_tpu_torch.tracing import span
+
+# the pipeline's blocks: a replay of the block's graph, or its eager
+# bookkeeping (``plain``); while a profiler records, each one's lanes and
+# whether its graph was captured in that call (``capture``)
+BLOCKS = _build.KernelCounts(log_name="block")
 
 
 class _FlatState(NamedTuple):
@@ -79,95 +101,179 @@ def _write_rows(buf, frame, done, val):
     buf[ar, frame] = torch.where(m, val.to(buf.dtype), buf[ar, frame])
 
 
-def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
-                        hyper: eng.DragHyper, tparam,
-                        states: eng.DragState, dqs_norm, gt_pos, gt_rot,
-                        sync_k: int = 24, lengths=None,
-                        fast: bool | None = None):
-    """Batched reconstruction.  ``states`` batched; ``dqs_norm`` (B, T, J*8),
-    ``gt_pos`` (B, T, 3), ``gt_rot`` (B, T, 4); ``lengths`` (B,) optional
-    per-lane frame counts (lanes halt there; outputs beyond are zeros).
-    ``fast`` picks the inner loop: K1 (``True``) or the per-lane anchor
-    step (``False``); ``None`` takes K1 whenever it can (no constraints, a
-    folded decoder), and ``True`` where it cannot raises.
-    Returns (final states, FrameOutput with leaves (B, T, ...))."""
-    with span("dragposer.pipeline"):
-        return _run(model, statics, skeleton, hyper, tparam, states,
-                    dqs_norm, gt_pos, gt_rot, sync_k, lengths, fast)
+def _copy_leaves(dst, src) -> None:
+    """Every leaf of ``src`` into the same leaf of ``dst`` (same shapes),
+    one ``torch._foreach_copy_`` a dtype; a leaf that is its own source is
+    left."""
+    by_dtype = {}
+    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        if d is not s:
+            pair = by_dtype.setdefault(d.dtype, ([], []))
+            pair[0].append(d)
+            pair[1].append(s)
+    for d, s in by_dtype.values():
+        torch._foreach_copy_(d, s)
 
 
-def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
-         gt_rot, sync_k, lengths, fast):
-    eligible = not hyper.constraints and eng._is_folded(model.decoder)
-    if fast is None:
-        fast = eligible
-    elif fast and not eligible:
-        raise ValueError("the fast inner loop (K1) takes no constraints and "
-                         "needs the folded decoder")
-    dev = dqs_norm.device
-    B, T = dqs_norm.shape[0], dqs_norm.shape[1]
-    limit = torch.full((B,), T, dtype=torch.int32, device=dev)
-    if lengths is not None:
-        limit = torch.minimum(lengths.to(torch.int32), limit)
-    if fast:
-        ctx = fast_iter.make_context(model, skeleton, hyper)
-        kctx = iter_kernel.make_kernel_context(ctx)
-    L = states.latent.shape[-1]
-    H = states.heights_buffer.shape[-1]
-    P = states.latent_buffer.shape[1]
-    ar = torch.arange(B, device=dev)
+class _Carry(NamedTuple):
+    """What one block hands the next: every leaf leads with the lanes,
+    but K1's targets, which end with them."""
 
-    # static gathers of the rollout inputs from the flat ring buffers
-    past = np.asarray(hyper.past_frames)
-    step = hyper.sample_step
-    idx = lambda a: torch.as_tensor(np.asarray(a).ravel(), device=dev)  # noqa: E731
-    idx_lat = idx(past[:, None] * L + np.arange(L)[None, :])
-    acc = past[:-1, None] + np.arange(step)[None, :]
-    idx_d = idx(acc[..., None] * 3 + np.arange(3))
-    idx_h = idx(past[:-1, None] * H + np.arange(H)[None, :])
+    state: _FlatState
+    opt: eng._OptCarry
+    tpos: torch.Tensor         # (J, 3, B) for K1, else (B, J, 3)
+    trot: torch.Tensor         # (J, 3, 3, B) for K1, else (B, J, 3, 3)
+    tbuf: torch.Tensor         # (B, W+1, L) the frame's target buffer
+    tlat: torch.Tensor         # (B, L) the frame's temporal target
+    frame: torch.Tensor        # (B,) int32
+    lane_active: torch.Tensor  # (B,) frame < limit
+    done: torch.Tensor         # (B,) the lanes that finished a frame
+    more: torch.Tensor         # () whether any lane is active
 
-    def begin_all(s: _FlatState, began, f_idx):
+
+class _Outs(NamedTuple):
+    """The per-frame outputs (B, T, ...), written row by row in place."""
+
+    latent: torch.Tensor
+    global_pos: torch.Tensor
+    global_rot: torch.Tensor
+    iterations: torch.Tensor
+    loss_pos: torch.Tensor
+    loss_rot: torch.Tensor
+
+
+class _Block:
+    """One call's constants and the phases of a block over a
+    :class:`_Carry`: ``start`` (the prologue), ``inner`` (K1, or the
+    per-lane loop), ``finish``, ``targets`` and ``begin``."""
+
+    def __init__(self, model, statics, skeleton, hyper: eng.DragHyper,
+                 tparam, fast: bool, sync_k: int, states: eng.DragState,
+                 dqs_norm, gt_pos, gt_rot, lengths):
+        self.model, self.statics, self.skeleton = model, statics, skeleton
+        self.hyper, self.tparam = hyper, tparam
+        self.fast, self.sync_k = fast, sync_k
+        self.inputs = (dqs_norm, gt_pos, gt_rot)
+        dev = self.device = dqs_norm.device
+        B, T = self.B, self.T = dqs_norm.shape[0], dqs_norm.shape[1]
+        limit = torch.full((B,), T, dtype=torch.int32, device=dev)
+        if lengths is not None:
+            limit = torch.minimum(lengths.to(torch.int32), limit)
+        self.limit = limit
+        if fast:
+            self.ctx = fast_iter.make_context(model, skeleton, hyper)
+            self.kctx = iter_kernel.make_kernel_context(self.ctx)
+        L = self.L = states.latent.shape[-1]
+        H = states.heights_buffer.shape[-1]
+        self.P = states.latent_buffer.shape[1]
+        self.ar = torch.arange(B, device=dev)
+
+        # static gathers of the rollout inputs from the flat ring buffers
+        past = np.asarray(hyper.past_frames)
+        step = hyper.sample_step
+        idx = lambda a: eng._index_tensor(np.ravel(a), dev)  # noqa: E731
+        self.idx_lat = idx(past[:, None] * L + np.arange(L)[None, :])
+        acc = past[:-1, None] + np.arange(step)[None, :]
+        self.idx_d = idx(acc[..., None] * 3 + np.arange(3))
+        self.idx_h = idx(past[:-1, None] * H + np.arange(H)[None, :])
+
+    def graphable(self) -> bool:
+        """Whether the bookkeeping is fixed-shape and graph-safe: CUDA
+        tensors and K1's inner loop (no constraint, the folded decoder)."""
+        return self.fast and self.device.type == "cuda"
+
+    def bound(self, **buffers) -> "_Block":
+        """This block reading ``buffers`` (``ctx``, ``limit``, ``ar``) in
+        place of its own."""
+        new = copy.copy(self)
+        new.__dict__.update(buffers)
+        return new
+
+    def _begin_all(self, s: _FlatState, began, f_idx):
+        hyper, B = self.hyper, self.B
         if not hyper.use_temporal:
             return s.target_buffer, torch.zeros_like(s.latent)
-        latp = s.latent_buffer[:, idx_lat].reshape(B, len(past), L)
-        disp_acc = s.displacement_buffer[:, idx_d].reshape(
-            B, len(past) - 1, step, 3).sum(dim=2)
-        heights = s.heights_buffer[:, idx_h].reshape(B, len(past) - 1, H)
+        n, L, step = len(hyper.past_frames), self.L, hyper.sample_step
+        latp = s.latent_buffer[:, self.idx_lat].reshape(B, n, L)
+        disp_acc = s.displacement_buffer[:, self.idx_d].reshape(
+            B, n - 1, step, 3).sum(dim=2)
+        heights = s.heights_buffer[:, self.idx_h].reshape(B, n - 1, -1)
         tbuf = eng._rollout_where_needed(
-            model, hyper, tparam, latp[:, :-1], disp_acc, heights,
+            self.model, hyper, self.tparam, latp[:, :-1], disp_acc, heights,
             latp[:, -1], began & (s.current_index == 0), s.target_buffer,
-            frame=f_idx, limit=limit)
-        return tbuf, tbuf[ar, s.current_index.long()]
+            frame=f_idx, limit=self.limit)
+        return tbuf, tbuf[self.ar, s.current_index.long()]
 
-    def targets_all(s: _FlatState, f_idx):
+    def _targets_all(self, s: _FlatState, f_idx):
         f = f_idx.long()
-        frame_inputs = (dqs_norm[ar, f], gt_pos[ar, f], gt_rot[ar, f])
-        if fast:    # planes (J, 3, B), (J, 3, 3, B)
-            return fast_iter.eval_targets_T(ctx, hyper, s.global_pos,
-                                            *frame_inputs)
-        return eng._eval_targets(model, skeleton, s, *frame_inputs)
+        dqs_norm, gt_pos, gt_rot = self.inputs
+        frame_inputs = (dqs_norm[self.ar, f], gt_pos[self.ar, f],
+                        gt_rot[self.ar, f])
+        if self.fast:    # planes (J, 3, B), (J, 3, 3, B)
+            return fast_iter.eval_targets_T(self.ctx, self.hyper,
+                                            s.global_pos, *frame_inputs)
+        return eng._eval_targets(self.model, self.skeleton, s,
+                                 *frame_inputs)
 
-    def inner_loop(opt, lane_active, s: _FlatState, tpos, trot, tlat):
-        if fast:
-            return iter_kernel.run_block_fused(ctx, kctx, hyper, sync_k, opt,
-                                               lane_active, s, tpos, trot,
-                                               tlat)
-        for _ in range(sync_k):
+    def _adj_targets(self, tpos):
+        if self.hyper.joint_adjustment is None:
+            return torch.zeros(self.B, 3, device=self.device)
+        ee = self.hyper.joint_adjustment[1]
+        return tpos[ee].T if self.fast else tpos[:, ee]
+
+    def start(self, states: eng.DragState) -> _Carry:
+        """The prologue: every lane begins frame 0."""
+        state = _flatten_state(states)
+        B, dev = self.B, self.device
+        frame = torch.zeros(B, dtype=torch.int32, device=dev)
+        tbuf, tlat = self._begin_all(
+            state, torch.ones(B, dtype=torch.bool, device=dev), frame)
+        tpos, trot = self._targets_all(state, frame)
+        lane_active = frame < self.limit
+        return _Carry(
+            state=state, opt=eng._opt_init(state.latent,
+                                           self.skeleton.n_joints),
+            tpos=tpos, trot=trot, tbuf=tbuf, tlat=tlat, frame=frame,
+            lane_active=lane_active,
+            done=torch.zeros(B, dtype=torch.bool, device=dev),
+            more=lane_active.any())
+
+    def new_outs(self) -> _Outs:
+        z = lambda *s, dtype=torch.float32: torch.zeros(  # noqa: E731
+            (self.B, self.T) + s, dtype=dtype, device=self.device)
+        return _Outs(latent=z(self.L), global_pos=z(3), global_rot=z(4),
+                     iterations=z(dtype=torch.int32), loss_pos=z(),
+                     loss_rot=z())
+
+    def inner(self, c: _Carry, opt: eng._OptCarry) -> eng._OptCarry:
+        """``sync_k`` masked Adam steps from ``opt`` on ``c``'s targets."""
+        if self.fast:
+            return iter_kernel.run_block_fused(
+                self.ctx, self.kctx, self.hyper, self.sync_k, opt,
+                c.lane_active, c.state, c.tpos, c.trot, c.tlat)
+        for _ in range(self.sync_k):
             with span("dragposer.anchor.wait"):
-                active = eng._opt_cond(opt, hyper) & lane_active
+                active = eng._opt_cond(opt, self.hyper) & c.lane_active
                 if not bool(active.any()):
                     break
             with span("dragposer.anchor.step"):
-                new = eng._opt_body(opt, model, statics, skeleton, hyper,
-                                    s.global_pos, s.global_rot, tpos, trot,
-                                    tlat)
+                new = eng._opt_body(opt, self.model, self.statics,
+                                    self.skeleton, self.hyper,
+                                    c.state.global_pos, c.state.global_rot,
+                                    c.tpos, c.trot, c.tlat)
                 opt = eng._select(active, new, opt)
         return opt
 
-    def finish(s: _FlatState, opt: eng._OptCarry, tbuf, adj):
+    def finish(self, c: _Carry, outs: _Outs) -> _Carry:
+        """The lanes whose stop rule ended advance: state, output rows
+        (written into ``outs``), frame."""
+        s, opt = c.state, c.opt
+        done = ~eng._opt_cond(opt, self.hyper) & c.lane_active
         gp, gr, disp, heights, ci, _ = eng._advance_core(
-            model, hyper, s.global_pos, s.current_index, opt, adj)
-        return _FlatState(
+            self.model, self.hyper, s.global_pos, s.current_index, opt,
+            self._adj_targets(c.tpos))
+        L, H = self.L, heights.shape[-1]
+        new_state = _FlatState(
             latent=opt.latent, global_pos=gp, global_rot=gr,
             latent_buffer=torch.cat((s.latent_buffer[:, L:],
                                      opt.decoded_latent), dim=1),
@@ -175,91 +281,268 @@ def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
                                            disp), dim=1),
             heights_buffer=torch.cat((s.heights_buffer[:, H:], heights),
                                      dim=1),
-            target_buffer=tbuf, current_index=ci)
+            target_buffer=c.tbuf, current_index=ci)
+        state = eng._select(done, new_state, s)
+        f_cl = torch.clamp(c.frame, max=self.T - 1).long()
+        for buf, val in zip(outs, (opt.decoded_latent, gp, gr, opt.t,
+                                   opt.loss_pos, opt.loss_rot)):
+            _write_rows(buf, f_cl, done, val)
+        return c._replace(state=state, done=done,
+                          frame=c.frame + done.to(torch.int32))
 
-    def adj_targets(tpos):
-        if hyper.joint_adjustment is None:
-            return torch.zeros(B, 3, device=dev)
-        ee = hyper.joint_adjustment[1]
-        return tpos[ee].T if fast else tpos[:, ee]
+    def targets(self, c: _Carry) -> _Carry:
+        """The advanced lanes' targets at their next frame and a fresh Adam
+        state; the others keep theirs.  Then the lanes still active."""
+        done = c.done
+        tpos, trot = self._targets_all(
+            c.state, torch.clamp(c.frame, max=self.T - 1))
+        if self.fast:    # the lane axis is the last
+            tpos = torch.where(done[None, None, :], tpos, c.tpos)
+            trot = torch.where(done[None, None, None, :], trot, c.trot)
+        else:
+            tpos = eng._select(done, tpos, c.tpos)
+            trot = eng._select(done, trot, c.trot)
+        opt = eng._select(done, eng._opt_init(c.state.latent,
+                                              self.skeleton.n_joints), c.opt)
+        lane_active = c.frame < self.limit
+        return c._replace(tpos=tpos, trot=trot, opt=opt,
+                          lane_active=lane_active, more=lane_active.any())
 
-    # prologue: every lane begins frame 0
-    with span("dragposer.pipeline.prologue"):
-        state = _flatten_state(states)
-        frame = torch.zeros(B, dtype=torch.int32, device=dev)
-        tbuf, tlat = begin_all(state, torch.ones(B, dtype=torch.bool,
-                                                 device=dev), frame)
-        tpos, trot = targets_all(state, frame)
-        opt = eng._opt_init(state.latent, skeleton.n_joints)
-        outs = {
-            "latent": torch.zeros(B, T, L, device=dev),
-            "global_pos": torch.zeros(B, T, 3, device=dev),
-            "global_rot": torch.zeros(B, T, 4, device=dev),
-            "iterations": torch.zeros(B, T, dtype=torch.int32, device=dev),
-            "loss_pos": torch.zeros(B, T, device=dev),
-            "loss_rot": torch.zeros(B, T, device=dev),
-        }
-    with span("dragposer.pipeline.wait"):
-        go = bool((frame < limit).any())
+    def begin(self, c: _Carry, frame) -> tuple:
+        """The advanced lanes begin their frame (``frame``: the carry's, or
+        a copy the rollout's record keeps): ``(tbuf, tlat)``."""
+        tbuf, tlat = self._begin_all(c.state, c.done, frame)
+        return (eng._select(c.done, tbuf, c.tbuf),
+                eng._select(c.done, tlat, c.tlat))
 
-    # global loop: K masked Adam steps, then a sync point (the check of
-    # whether another block runs, at the block's end)
-    while go:
-        with span("dragposer.block"):
-            with span("dragposer.block.k1"):
-                lane_active = frame < limit
-                opt = inner_loop(opt, lane_active, state, tpos, trot, tlat)
 
-            with span("dragposer.block.finish"):
-                done = ~eng._opt_cond(opt, hyper) & lane_active
-                new_state = finish(state, opt, tbuf, adj_targets(tpos))
-                state = eng._select(done, new_state, state)
-                f_cl = torch.clamp(frame, max=T - 1).long()
-                _write_rows(outs["latent"], f_cl, done, opt.decoded_latent)
-                _write_rows(outs["global_pos"], f_cl, done,
-                            new_state.global_pos)
-                _write_rows(outs["global_rot"], f_cl, done,
-                            new_state.global_rot)
-                _write_rows(outs["iterations"], f_cl, done, opt.t)
-                _write_rows(outs["loss_pos"], f_cl, done, opt.loss_pos)
-                _write_rows(outs["loss_rot"], f_cl, done, opt.loss_rot)
-                frame = frame + done.to(torch.int32)
+class _EagerBlocks:
+    """The blocks' bookkeeping as eager ops on a carry of their own (the
+    CPU, the per-lane loop)."""
 
-            # advanced lanes begin their next frame; others keep their values
-            with span("dragposer.block.begin"):
-                tbuf_new, tlat_new = begin_all(state, done, frame)
-                tbuf = eng._select(done, tbuf_new, tbuf)
-                tlat = eng._select(done, tlat_new, tlat)
+    plain, fresh = True, False
 
-            with span("dragposer.block.targets"):
-                f_next = torch.clamp(frame, max=T - 1)
-                tpos_new, trot_new = targets_all(state, f_next)
-                if fast:    # the lane axis is the last
-                    tpos = torch.where(done[None, None, :], tpos_new, tpos)
-                    trot = torch.where(done[None, None, None, :], trot_new,
-                                       trot)
-                else:
-                    tpos = eng._select(done, tpos_new, tpos)
-                    trot = eng._select(done, trot_new, trot)
-                opt = eng._select(done, eng._opt_init(state.latent,
-                                                      skeleton.n_joints), opt)
+    def __init__(self, block: _Block, carry: _Carry):
+        self.block, self.carry, self.outs = block, carry, block.new_outs()
 
-            with span("dragposer.block.wait"):
-                go = bool((frame < limit).any())
+    def put(self, **leaves) -> None:
+        self.carry = self.carry._replace(**leaves)
+
+    @staticmethod
+    def kept(x):
+        return x
+
+    def settle(self) -> None:
+        with span("dragposer.block.finish"):
+            c = self.block.finish(self.carry, self.outs)
+        with span("dragposer.block.targets"):
+            self.carry = self.block.targets(c)
+
+    def result(self) -> tuple:
+        return self.carry.state, self.outs
+
+
+class _Key:
+    """What a block graph serves: the model, statics and skeleton (by
+    identity), the hyperparameters, sync_k, the lanes, frames and device,
+    and the input tensors, by identity and held weakly (the graph gathers
+    from their memory; a freed input matches nothing)."""
+
+    def __init__(self, block: _Block):
+        self.parts = (block.model, block.statics, block.skeleton)
+        self.hyper, self.sync_k = block.hyper, block.sync_k
+        self.shape = (block.B, block.T, block.device)
+        self.inputs = tuple(weakref.ref(x) for x in block.inputs)
+
+    def matches(self, block: _Block) -> bool:
+        return (all(a is b for a, b in zip(
+                    self.parts, (block.model, block.statics, block.skeleton)))
+                and self.hyper == block.hyper and self.sync_k == block.sync_k
+                and self.shape == (block.B, block.T, block.device)
+                and all(r() is x for r, x in zip(self.inputs, block.inputs)))
+
+
+class _BlockGraph:
+    """A block's bookkeeping, ``finish`` then ``targets``, captured as one
+    CUDA graph over buffers of its own (the carry, the outputs, ``limit``,
+    K1's context and the lane index, which the targets read) for one
+    :class:`_Key`.
+
+    * ``start``: a call's ``limit``, context and prologue carry copied in,
+      the outputs zeroed;
+    * ``put``: K1's carry or ``begin``'s targets copied in;
+    * ``settle``: one replay;
+    * ``kept``: a copy of a buffer while a profiler records (the launch
+      records keep it; a later replay overwrites the buffer);
+    * ``result``: the state and outputs cloned out.
+
+    The model's tensors and the inputs are read in place.  Captured on a
+    stream of its own after one eager run on it (results thrown away), in
+    the mode that lets other threads use the card meanwhile.  ``fresh``
+    until its first replay."""
+
+    plain = False
+
+    def __init__(self, block: _Block, carry: _Carry):
+        self.key = _Key(block)
+        self.ctx = map_tree(torch.clone, block.ctx)
+        self.limit = block.limit.clone()
+        self.ar = block.ar
+        self.carry = map_tree(torch.clone, carry)
+        self.outs = block.new_outs()
+        own = block.bound(ctx=self.ctx, limit=self.limit, ar=self.ar)
+
+        def settle():
+            _copy_leaves(self.carry,
+                         own.targets(own.finish(self.carry, self.outs)))
+
+        self.graph = self._capture(settle, block.device)
+        self.fresh = True
+
+    @staticmethod
+    def _capture(fn, device) -> torch.cuda.CUDAGraph:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            fn()
+        return graph
+
+    def start(self, block: _Block, carry: _Carry) -> None:
+        _copy_leaves((self.ctx, self.limit, self.carry),
+                     (block.ctx, block.limit, carry))
+        torch._foreach_zero_(list(self.outs))
+
+    def put(self, **leaves) -> None:
+        _copy_leaves([getattr(self.carry, k) for k in leaves],
+                     list(leaves.values()))
+
+    @staticmethod
+    def kept(x):
+        return x.clone() if tracing.recording() else x
+
+    def settle(self) -> None:
+        with span("dragposer.block.graph"):
+            self.graph.replay()
+
+    def result(self) -> tuple:
+        return map_tree(torch.clone, (self.carry.state, self.outs))
+
+
+class BlockGraphs:
+    """An engine's block graph (its last call's), held by one thread at a
+    time (the daemon's eval jobs share engines and run on streams of their
+    own)."""
+
+    def __init__(self):
+        self.graph = None
+        self.lock = threading.Lock()
+        # recorded on the holder's stream after its last use of the buffers
+        self.released = None
+
+    @contextlib.contextmanager
+    def hold(self, block: _Block, carry: _Carry):
+        """The graph serving ``block``, captured if there is none or it
+        serves another key, started on the call.  The caller's stream
+        first waits for the last holder's work on the buffers; a capture
+        first waits on the host, since the old graph's buffers go back to
+        the allocator."""
+        device = block.device
+        with self.lock, torch.cuda.device(device):
+            if self.released is None:
+                self.released = torch.cuda.Event()
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.released)
+            if self.graph is None or not self.graph.key.matches(block):
+                self.released.synchronize()
+                self.graph = None    # its buffers freed before the new ones
+                self.graph = _BlockGraph(block, carry)
+            g = self.graph
+            g.start(block, carry)
+            try:
+                yield g
+            finally:
+                self.released.record(stream)
+
+
+def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
+                        hyper: eng.DragHyper, tparam,
+                        states: eng.DragState, dqs_norm, gt_pos, gt_rot,
+                        sync_k: int = 24, lengths=None,
+                        fast: bool | None = None,
+                        graphs: BlockGraphs | None = None):
+    """Batched reconstruction.  ``states`` batched; ``dqs_norm`` (B, T, J*8),
+    ``gt_pos`` (B, T, 3), ``gt_rot`` (B, T, 4); ``lengths`` (B,) optional
+    per-lane frame counts (lanes halt there; outputs beyond are zeros).
+    ``fast`` picks the inner loop: K1 (``True``) or the per-lane anchor
+    step (``False``); ``None`` takes K1 whenever it can (no constraints, a
+    folded decoder), and ``True`` where it cannot raises.  ``graphs``: an
+    engine's :class:`BlockGraphs`, whose graph runs each block's
+    bookkeeping where the block is graph-safe (eager without it).
+    Returns (final states, FrameOutput with leaves (B, T, ...))."""
+    with span("dragposer.pipeline"):
+        return _run(model, statics, skeleton, hyper, tparam, states,
+                    dqs_norm, gt_pos, gt_rot, sync_k, lengths, fast, graphs)
+
+
+def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
+         gt_rot, sync_k, lengths, fast, graphs):
+    eligible = not hyper.constraints and eng._is_folded(model.decoder)
+    if fast is None:
+        fast = eligible
+    elif fast and not eligible:
+        raise ValueError("the fast inner loop (K1) takes no constraints and "
+                         "needs the folded decoder")
+    with contextlib.ExitStack() as stack:
+        with span("dragposer.pipeline.prologue"):
+            block = _Block(model, statics, skeleton, hyper, tparam, fast,
+                           sync_k, states, dqs_norm, gt_pos, gt_rot,
+                           lengths)
+            carry = block.start(states)
+            if graphs is not None and block.graphable():
+                loop = stack.enter_context(graphs.hold(block, carry))
+            else:
+                loop = _EagerBlocks(block, carry)
+        with span("dragposer.pipeline.wait"):
+            go = bool(loop.carry.more)
+
+        # global loop: K masked Adam steps, the bookkeeping, the rollout,
+        # then a sync point (the check of whether another block runs)
+        while go:
+            with span("dragposer.block"):
+                BLOCKS.launched(plain=loop.plain, lanes=block.B,
+                                capture=loop.fresh)
+                loop.fresh = False
+                with span("dragposer.block.k1"):
+                    c = loop.carry
+                    opt = c.opt._replace(t=loop.kept(c.opt.t))
+                    loop.put(opt=block.inner(c, opt))
+                loop.settle()
+                with span("dragposer.block.begin"):
+                    c = loop.carry
+                    tbuf, tlat = block.begin(c, loop.kept(c.frame))
+                    loop.put(tbuf=tbuf, tlat=tlat)
+                with span("dragposer.block.wait"):
+                    go = bool(loop.carry.more)
+        state, outs = loop.result()
 
     # epilogue: one batched decode of the stored latents (plain matmuls)
     with span("dragposer.pipeline.epilogue"):
+        B, T, L = block.B, block.T, block.L
         mean_q, std_q = eng._quat_stats(model)
-        pose_n, _ = eng._decode(model, statics,
-                                outs["latent"].reshape(B * T, L))
+        pose_n, _ = eng._decode(model, statics, outs.latent.reshape(B * T, L))
         pose = pose_n.reshape(B, T, -1)
-        root = (outs["global_rot"] - mean_q[:4]) / std_q[:4]
+        root = (outs.global_rot - mean_q[:4]) / std_q[:4]
         pose = torch.cat((root, pose[..., 4:]), dim=-1)
-        valid = (torch.arange(T, device=dev)[None, :]
-                 < limit[:, None])[..., None]
+        valid = (torch.arange(T, device=block.device)[None, :]
+                 < block.limit[:, None])[..., None]
         out = eng.FrameOutput(
             pose=torch.where(valid, pose, 0.0),
-            global_pos=outs["global_pos"], iterations=outs["iterations"],
-            loss_pos=outs["loss_pos"], loss_rot=outs["loss_rot"],
-            latent=torch.where(valid, outs["latent"], 0.0))
-    return _unflatten_state(state, P), out
+            global_pos=outs.global_pos, iterations=outs.iterations,
+            loss_pos=outs.loss_pos, loss_rot=outs.loss_rot,
+            latent=torch.where(valid, outs.latent, 0.0))
+    return _unflatten_state(state, block.P), out

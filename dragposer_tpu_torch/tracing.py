@@ -18,10 +18,12 @@ The spans, outermost first:
   ``.wait`` (the first loop check), the blocks and ``.epilogue`` (the
   decode of the stored latents);
 * ``dragposer.block``: one block; in it ``.k1`` (K1's launch, or the
-  anchor's masked iterations), ``.finish`` (``finish``, the selects, the
-  row writes), ``.begin`` (``begin_all`` and its selects), ``.targets``
-  (``targets_all``, its selects, Adam's re-init) and ``.wait`` (the check
-  of whether another block runs);
+  anchor's masked iterations), then the bookkeeping: eager, ``.finish``
+  (the advance, the selects, the row writes) and ``.targets`` (the next
+  frame's targets, their selects, Adam's re-init, the lanes still
+  active), or on the card ``.graph`` (one replay of the block's CUDA
+  graph of both); then ``.begin`` (the rollout and its selects) and
+  ``.wait`` (the check of whether another block runs);
 * ``dragposer.rollout``: ``engine._rollout_where_needed`` where K2 runs;
   ``dragposer.rollout.wait``: its ``nonzero`` of the lanes that need it;
 * ``dragposer.to_host`` (``.wait``): ``engine.to_host``;
@@ -59,7 +61,8 @@ def counter_totals() -> dict:
     K1's launches, lane-steps taken and lanes × each launch's longest lane;
     K2's launches and lanes run; the rollouts' lanes run and the lanes
     among them that began a real frame (within the lane's length); the
-    anchor's iterations, those that were graph replays and the captures."""
+    anchor's iterations, those that were graph replays and the captures;
+    the pipeline's blocks, those replayed as its graph and the captures."""
     from dragposer_tpu_torch import _build
 
     k1 = _build.launch_log("K1", "K1_general")
@@ -67,6 +70,7 @@ def counter_totals() -> dict:
     k2 = _build.launch_log("K2")
     rollouts = _build.launch_log("rollout")
     anchor = _build.launch_log("anchor")
+    blocks = _build.launch_log("block")
     return {
         "k1_launches": len(k1),
         "k1_lane_steps": int(sum(int(s.sum()) for s in steps)),
@@ -80,6 +84,9 @@ def counter_totals() -> dict:
         "anchor_iterations": len(anchor),
         "anchor_graph_replays": sum(not r["plain"] for r in anchor),
         "anchor_graph_captures": sum(r["capture"] for r in anchor),
+        "pipeline_blocks": len(blocks),
+        "pipeline_graph_replays": sum(not r["plain"] for r in blocks),
+        "pipeline_graph_captures": sum(r["capture"] for r in blocks),
     }
 
 

@@ -27,7 +27,7 @@ LENGTHS = np.array([10, 7, 10, 3, 9, 10], np.int32)
 # the lanes reach their window boundary in different blocks
 WINDOWED_LENGTHS = np.array([20, 17, 20, 18] * 3, np.int32)
 SYNC_K, MAX_ITER = 4, 8
-PHASES = ("k1", "finish", "begin", "targets", "wait")
+PHASES = ("k1", "finish", "targets", "begin", "wait")
 
 
 def _engine(config, clip_path):
