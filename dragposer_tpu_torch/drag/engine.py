@@ -2,7 +2,8 @@
 the per-lane *anchor* path (``_drag_loss`` → ``_opt_body`` → ``frame_step``
 → ``run_sequence``, the ``DragEngine`` methods ``run``, ``run_batch``,
 ``step`` and ``step_realtime``) and the building blocks the pipelined path
-(``drag/pipeline.py``) shares with it.
+shares with it: the rollout's inputs from the (B, P, ·) ring buffers, the
+rollout, the end-of-frame advance and the rings' shift.
 
 Every function here works on a batch: leaves lead with the lane axis
 ``B`` (the JAX package writes them per lane and ``vmap``s them).  The
@@ -33,7 +34,7 @@ its autograd gradient, Adam and the select, captured once per engine and
 lane count): the eager loop's kernels in its order, with copies into the
 graph's buffers, so the two agree bit for bit; the stop rule's host check
 stays once an iteration, and the graphs' buffers are held by one thread
-and stream at a time (:class:`_AnchorGraphs`).  Eager autograd steps
+and stream at a time (``_graphs.Holder``).  Eager autograd steps
 (:class:`_EagerLoop`) run everything else: CPU tensors, an unfolded
 decoder, and constraints (a user's callable may read values back to the
 host).  Both run the one loop of :func:`_optimize`.  A frame's phases,
@@ -46,14 +47,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import threading
 
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dragposer_tpu_torch import _build
+from dragposer_tpu_torch import _build, _graphs
 from dragposer_tpu_torch._device import resolve_device
 from dragposer_tpu_torch.models import loading, vae
 from dragposer_tpu_torch.ops import fk, quat, temporal_fused
@@ -292,12 +292,15 @@ def _rollout_where_needed(model: DragModel, hyper: DragHyper, tparam,
 def _rollout_inputs(state: DragState, hyper: DragHyper):
     """The predictor's inputs from the (B, P, ·) ring buffers: sampled
     latents (B, P'-1, L), accumulated displacements (B, P'-1, 3), heights
-    (B, P'-1, H) and the newest sampled latent (B, L)."""
-    past = torch.as_tensor(hyper.past_frames, device=state.latent.device)
-    step = hyper.sample_step
+    (B, P'-1, H) and the newest sampled latent (B, L).  The rows are
+    gathered by indices kept on the device (:func:`_index_tensor`)."""
+    dev, step = state.latent.device, hyper.sample_step
+    past = _index_tensor(hyper.past_frames, dev)
+    acc = _index_tensor(np.add.outer(hyper.past_frames[:-1],
+                                     np.arange(step)).ravel(), dev)
     latp = state.latent_buffer[:, past]
-    acc = past[:-1, None] + torch.arange(step, device=past.device)[None]
-    disp_acc = state.displacement_buffer[:, acc].sum(dim=2)
+    disp_acc = state.displacement_buffer[:, acc].unflatten(
+        1, (-1, step)).sum(dim=2)
     heights = state.heights_buffer[:, past[:-1]]
     return latp[:, :-1], disp_acc, heights, latp[:, -1]
 
@@ -503,11 +506,11 @@ class _EagerLoop:
 
     plain, fresh = True, False
 
-    def __init__(self, latent0, model: DragModel, statics,
-                 skeleton: Skeleton, hyper: DragHyper, frame):
-        self.args = (model, statics, skeleton, hyper) + frame
+    def __init__(self, model: DragModel, statics, skeleton: Skeleton,
+                 hyper: DragHyper, inputs):
+        self.args = (model, statics, skeleton, hyper) + inputs[1:]
         self.hyper = hyper
-        self.carry = _opt_init(latent0, skeleton.n_joints)
+        self.carry = _opt_init(inputs[0], skeleton.n_joints)
 
     def more(self) -> bool:
         self.active = _opt_cond(self.carry, self.hyper)
@@ -544,10 +547,9 @@ class _AnchorGraph:
       (the next frame overwrites the buffers).
 
     The model's tensors are read in place: a mask written with ``copy_``
-    is seen by the next replay.  Both graphs are captured on a stream of
-    their own, after one eager run of each on it (results thrown away), in
-    the mode that lets other threads use the card meanwhile.  ``fresh``
-    until its first replay of ``step``."""
+    is seen by the next replay.  Both graphs are captured by
+    ``_graphs.capture``; ``serves`` is the engine's holder's test of the
+    graph.  ``fresh`` until its first replay of ``step``."""
 
     plain = False
 
@@ -560,23 +562,9 @@ class _AnchorGraph:
                               _opt_init(self.inputs[0], skeleton.n_joints))
         device = self.inputs[0].device
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._reset()
-            self._step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.reset_graph = self._capture(self._reset, side)
-        self.step_graph = self._capture(self._step, side)
+        self.reset_graph, self.step_graph = _graphs.capture(
+            device, self._reset, self._step)
         self.fresh = True
-
-    @staticmethod
-    def _capture(fn, stream) -> torch.cuda.CUDAGraph:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            fn()
-        return graph
 
     def serves(self, model, statics, skeleton, hyper) -> bool:
         return (self.model is model and self.statics is statics
@@ -612,61 +600,29 @@ class _AnchorGraph:
         return map_tree(torch.clone, self.carry)
 
 
-class _AnchorGraphs:
-    """An engine's anchor graphs, one a lane count, held by one thread at
-    a time (the daemon's jobs share engines and run on streams of their
-    own)."""
-
-    def __init__(self):
-        self.by_lanes = {}
-        self.lock = threading.Lock()
-        # recorded on the holder's stream after its last use of the buffers
-        self.released = None
-
-    @contextlib.contextmanager
-    def hold(self, latent0, model, statics, skeleton, hyper, frame):
-        """The graph of ``latent0``'s lane count, captured if it is
-        missing or serves another model or hyperparameters, started on
-        the frame.  The caller's stream first waits for the last holder's
-        work on the buffers; a capture first waits on the host, since the
-        old graph's buffers go back to the allocator."""
-        B = latent0.shape[0]
-        device = latent0.device
-        with self.lock, torch.cuda.device(device):
-            if self.released is None:
-                self.released = torch.cuda.Event()
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(self.released)
-            g = self.by_lanes.get(B)
-            if g is None or not g.serves(model, statics, skeleton, hyper):
-                self.released.synchronize()
-                g = self.by_lanes[B] = _AnchorGraph(
-                    model, statics, skeleton, hyper, (latent0,) + frame)
-            g.start((latent0,) + frame)
-            try:
-                yield g
-            finally:
-                self.released.record(stream)
-
-
 def _optimize(latent0, model: DragModel, statics, skeleton: Skeleton,
               hyper: DragHyper, global_pos, global_rot, target_ee_pos,
               target_ee_rot, target_latent, graphs=None) -> _OptCarry:
     """Fresh Adam from ``latent0`` (B, L) until no lane's stop rule holds.
     Lanes whose rule is false keep their carry; the loop's end is a host
     check of the rule once per iteration.  Given an engine's
-    :class:`_AnchorGraphs` and a graph-safe iteration (:func:`_graphable`:
-    CUDA tensors, the folded decoder, no constraint), an iteration is one
+    ``_graphs.Holder`` (a graph a lane count) and a graph-safe iteration
+    (:func:`_graphable`: CUDA tensors, the folded decoder, no constraint),
+    an iteration is one
     replay of a CUDA graph and the check a read of one flag; otherwise it
     is an eager autograd step (:class:`_EagerLoop`)."""
-    args = (latent0, model, statics, skeleton, hyper,
-            (global_pos, global_rot, target_ee_pos, target_ee_rot,
-             target_latent))
-    if graphs is not None and _graphable(latent0, model, hyper):
-        held = graphs.hold(*args)
-    else:
-        held = contextlib.nullcontext(_EagerLoop(*args))
-    with held as loop:
+    parts = (model, statics, skeleton, hyper)
+    inputs = (latent0, global_pos, global_rot, target_ee_pos, target_ee_rot,
+              target_latent)
+    with contextlib.ExitStack() as stack:
+        if graphs is not None and _graphable(latent0, model, hyper):
+            loop = stack.enter_context(graphs.hold(
+                latent0.device, latent0.shape[0],
+                lambda g: g.serves(*parts),
+                lambda: _AnchorGraph(*parts, inputs)))
+            loop.start(inputs)
+        else:
+            loop = _EagerLoop(*parts, inputs)
         while True:
             with span("dragposer.anchor.wait"):
                 if not loop.more():
@@ -711,31 +667,34 @@ def _advance_core(model: DragModel, hyper: DragHyper, state_global_pos,
     return global_pos, global_rot, displacement, heights, current_index, out
 
 
+def _next_state(state: DragState, final: _OptCarry, target_buffer,
+                global_pos, global_rot, displacement, heights,
+                current_index) -> DragState:
+    """The state after a frame (``_advance_core``'s first five results):
+    each (B, P, ·) ring buffer shifted by one row, the frame's row last."""
+    def shift(buf, row):
+        return torch.cat((buf[:, 1:], row[:, None]), dim=1)
+
+    return DragState(
+        latent=final.latent, global_pos=global_pos, global_rot=global_rot,
+        latent_buffer=shift(state.latent_buffer, final.decoded_latent),
+        displacement_buffer=shift(state.displacement_buffer, displacement),
+        heights_buffer=shift(state.heights_buffer, heights),
+        target_buffer=target_buffer, current_index=current_index)
+
+
 def _finish_frame(model: DragModel, hyper: DragHyper, state: DragState,
                   final: _OptCarry, target_buffer, target_ee_pos):
-    """End-of-frame work on the (B, P, ·) ring buffers: advance, then
-    shift each buffer by one row."""
+    """End-of-frame work: advance, then shift the ring buffers."""
     with span("dragposer.frame.finish"):
         B = state.latent.shape[0]
         adj = (target_ee_pos[:, hyper.joint_adjustment[1]]
                if hyper.joint_adjustment is not None
                else torch.zeros(B, 3, device=state.latent.device))
-        global_pos, global_rot, displacement, heights, current_index, \
-            out = _advance_core(model, hyper, state.global_pos,
-                                state.current_index, final, adj)
+        *advanced, out = _advance_core(model, hyper, state.global_pos,
+                                       state.current_index, final, adj)
+        return _next_state(state, final, target_buffer, *advanced), out
 
-        def shift(buf, row):
-            return torch.cat((buf[:, 1:], row[:, None]), dim=1)
-
-        new_state = DragState(
-            latent=final.latent, global_pos=global_pos,
-            global_rot=global_rot,
-            latent_buffer=shift(state.latent_buffer, final.decoded_latent),
-            displacement_buffer=shift(state.displacement_buffer,
-                                      displacement),
-            heights_buffer=shift(state.heights_buffer, heights),
-            target_buffer=target_buffer, current_index=current_index)
-        return new_state, out
 
 def frame_step(model: DragModel, statics, skeleton: Skeleton,
                hyper: DragHyper, tparam, state: DragState, target_ee_pos,
@@ -834,14 +793,6 @@ def _on_device(model: DragModel, statics, tparam, device) -> DragModel:
     )
 
 
-def _block_graphs():
-    """A new holder of an engine's pipeline block graph
-    (``pipeline.BlockGraphs``)."""
-    from dragposer_tpu_torch.drag import pipeline
-
-    return pipeline.BlockGraphs()
-
-
 class DragEngine:
     """Drag runtime for a fixed (skeleton, hyper, temporal config) on one
     device (``cuda`` unless ``device="cpu"``).
@@ -861,9 +812,9 @@ class DragEngine:
     ``run``, ``run_batch``, ``step`` and ``step_realtime`` run the anchor
     through the engine's own CUDA graphs on the card (:func:`_optimize`),
     captured at a lane count's first frame; ``run_batch_pipelined`` runs
-    each block's bookkeeping through the engine's block graph
-    (``pipeline.BlockGraphs``), captured for a call's shapes and input
-    tensors; ``replica`` starts with none.
+    each block's bookkeeping through the engine's block graph, captured for
+    a call's shapes and input tensors.  Each kind is held by a
+    ``_graphs.Holder`` of the engine's; ``replica`` starts with none.
     """
 
     def __init__(self, model: DragModel, statics, skeleton: Skeleton,
@@ -875,8 +826,8 @@ class DragEngine:
         self.hyper = hyper
         self.tparam = tparam
         self._replica_models = {}
-        self._anchor_graphs = _AnchorGraphs()
-        self._block_graphs = _block_graphs()
+        self._anchor_graphs = _graphs.Holder()
+        self._block_graphs = _graphs.Holder()
 
     def replica(self, device) -> "DragEngine":
         """The same engine on another device: every model tensor (the
@@ -893,8 +844,8 @@ class DragEngine:
             self._replica_models[new.device] = (self.model, model)
         new.model = model
         new._replica_models = {}
-        new._anchor_graphs = _AnchorGraphs()
-        new._block_graphs = _block_graphs()
+        new._anchor_graphs = _graphs.Holder()
+        new._block_graphs = _graphs.Holder()
         return new
 
     def tensor(self, a, dtype=torch.float32):

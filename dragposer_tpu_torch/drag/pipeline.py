@@ -21,7 +21,7 @@ both.
 A block is K1 (an eager launch), then its bookkeeping (``finish`` and
 ``targets``: fixed-shape ops over the batch), then ``begin`` (the rollout,
 eager: its launches of K2 and, at a window, its host check), then the
-loop's check.  Given an engine's :class:`BlockGraphs` and a graph-safe
+loop's check.  Given an engine's ``_graphs.Holder`` and a graph-safe
 block (CUDA tensors and K1), the bookkeeping is one replay of a CUDA graph
 (:class:`_BlockGraph`) over buffers that K1's carry and ``begin``'s
 targets are copied into; otherwise it runs eagerly (:class:`_EagerBlocks`).
@@ -31,20 +31,21 @@ bit for bit.  Each block and its phases are spans of a profiler's trace
 ``.finish`` / ``.targets`` (eager) or ``.graph`` (a replay) / ``.begin`` /
 ``.wait``), inside ``dragposer.pipeline``; ``BLOCKS`` logs each block
 while a profiler records.
+
+The state keeps the anchor's layout, its ring buffers (B, P, ·), and the
+anchor's helpers gather the rollout's inputs from them and shift them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-import threading
 import weakref
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from dragposer_tpu_torch import _build, tracing
+from dragposer_tpu_torch import _build, _graphs, tracing
 from dragposer_tpu_torch.drag import engine as eng
 from dragposer_tpu_torch.drag import fast_iter, iter_kernel
 from dragposer_tpu_torch.parallel.mesh import map_tree, tree_leaves
@@ -54,43 +55,6 @@ from dragposer_tpu_torch.tracing import span
 # bookkeeping (``plain``); while a profiler records, each one's lanes and
 # whether its graph was captured in that call (``capture``)
 BLOCKS = _build.KernelCounts(log_name="block")
-
-
-class _FlatState(NamedTuple):
-    """``DragState`` with flattened ring buffers (B, P·C)."""
-
-    latent: torch.Tensor
-    global_pos: torch.Tensor
-    global_rot: torch.Tensor
-    latent_buffer: torch.Tensor
-    displacement_buffer: torch.Tensor
-    heights_buffer: torch.Tensor
-    target_buffer: torch.Tensor
-    current_index: torch.Tensor
-
-
-def _flatten_state(s: eng.DragState) -> _FlatState:
-    """Flat, contiguous copies (the kernels take contiguous inputs)."""
-    B = s.latent.shape[0]
-    c = lambda x: x.contiguous()  # noqa: E731
-    return _FlatState(
-        latent=c(s.latent), global_pos=c(s.global_pos),
-        global_rot=c(s.global_rot),
-        latent_buffer=c(s.latent_buffer.reshape(B, -1)),
-        displacement_buffer=c(s.displacement_buffer.reshape(B, -1)),
-        heights_buffer=c(s.heights_buffer.reshape(B, -1)),
-        target_buffer=c(s.target_buffer),
-        current_index=c(s.current_index))
-
-
-def _unflatten_state(f: _FlatState, P: int) -> eng.DragState:
-    B = f.latent.shape[0]
-    return eng.DragState(
-        latent=f.latent, global_pos=f.global_pos, global_rot=f.global_rot,
-        latent_buffer=f.latent_buffer.reshape(B, P, -1),
-        displacement_buffer=f.displacement_buffer.reshape(B, P, -1),
-        heights_buffer=f.heights_buffer.reshape(B, P, -1),
-        target_buffer=f.target_buffer, current_index=f.current_index)
 
 
 def _write_rows(buf, frame, done, val):
@@ -119,7 +83,7 @@ class _Carry(NamedTuple):
     """What one block hands the next: every leaf leads with the lanes,
     but K1's targets, which end with them."""
 
-    state: _FlatState
+    state: eng.DragState
     opt: eng._OptCarry
     tpos: torch.Tensor         # (J, 3, B) for K1, else (B, J, 3)
     trot: torch.Tensor         # (J, 3, 3, B) for K1, else (B, J, 3, 3)
@@ -163,19 +127,8 @@ class _Block:
         if fast:
             self.ctx = fast_iter.make_context(model, skeleton, hyper)
             self.kctx = iter_kernel.make_kernel_context(self.ctx)
-        L = self.L = states.latent.shape[-1]
-        H = states.heights_buffer.shape[-1]
-        self.P = states.latent_buffer.shape[1]
+        self.L = states.latent.shape[-1]
         self.ar = torch.arange(B, device=dev)
-
-        # static gathers of the rollout inputs from the flat ring buffers
-        past = np.asarray(hyper.past_frames)
-        step = hyper.sample_step
-        idx = lambda a: eng._index_tensor(np.ravel(a), dev)  # noqa: E731
-        self.idx_lat = idx(past[:, None] * L + np.arange(L)[None, :])
-        acc = past[:-1, None] + np.arange(step)[None, :]
-        self.idx_d = idx(acc[..., None] * 3 + np.arange(3))
-        self.idx_h = idx(past[:-1, None] * H + np.arange(H)[None, :])
 
     def graphable(self) -> bool:
         """Whether the bookkeeping is fixed-shape and graph-safe: CUDA
@@ -189,22 +142,17 @@ class _Block:
         new.__dict__.update(buffers)
         return new
 
-    def _begin_all(self, s: _FlatState, began, f_idx):
-        hyper, B = self.hyper, self.B
-        if not hyper.use_temporal:
+    def _begin_all(self, s: eng.DragState, began, f_idx):
+        if not self.hyper.use_temporal:
             return s.target_buffer, torch.zeros_like(s.latent)
-        n, L, step = len(hyper.past_frames), self.L, hyper.sample_step
-        latp = s.latent_buffer[:, self.idx_lat].reshape(B, n, L)
-        disp_acc = s.displacement_buffer[:, self.idx_d].reshape(
-            B, n - 1, step, 3).sum(dim=2)
-        heights = s.heights_buffer[:, self.idx_h].reshape(B, n - 1, -1)
         tbuf = eng._rollout_where_needed(
-            self.model, hyper, self.tparam, latp[:, :-1], disp_acc, heights,
-            latp[:, -1], began & (s.current_index == 0), s.target_buffer,
+            self.model, self.hyper, self.tparam,
+            *eng._rollout_inputs(s, self.hyper),
+            began & (s.current_index == 0), s.target_buffer,
             frame=f_idx, limit=self.limit)
         return tbuf, tbuf[self.ar, s.current_index.long()]
 
-    def _targets_all(self, s: _FlatState, f_idx):
+    def _targets_all(self, s: eng.DragState, f_idx):
         f = f_idx.long()
         dqs_norm, gt_pos, gt_rot = self.inputs
         frame_inputs = (dqs_norm[self.ar, f], gt_pos[self.ar, f],
@@ -222,8 +170,9 @@ class _Block:
         return tpos[ee].T if self.fast else tpos[:, ee]
 
     def start(self, states: eng.DragState) -> _Carry:
-        """The prologue: every lane begins frame 0."""
-        state = _flatten_state(states)
+        """The prologue: every lane begins frame 0, from ``states``' leaves
+        made contiguous (the kernels take contiguous inputs)."""
+        state = eng.DragState(*[x.contiguous() for x in states])
         B, dev = self.B, self.device
         frame = torch.zeros(B, dtype=torch.int32, device=dev)
         tbuf, tlat = self._begin_all(
@@ -272,17 +221,8 @@ class _Block:
         gp, gr, disp, heights, ci, _ = eng._advance_core(
             self.model, self.hyper, s.global_pos, s.current_index, opt,
             self._adj_targets(c.tpos))
-        L, H = self.L, heights.shape[-1]
-        new_state = _FlatState(
-            latent=opt.latent, global_pos=gp, global_rot=gr,
-            latent_buffer=torch.cat((s.latent_buffer[:, L:],
-                                     opt.decoded_latent), dim=1),
-            displacement_buffer=torch.cat((s.displacement_buffer[:, 3:],
-                                           disp), dim=1),
-            heights_buffer=torch.cat((s.heights_buffer[:, H:], heights),
-                                     dim=1),
-            target_buffer=c.tbuf, current_index=ci)
-        state = eng._select(done, new_state, s)
+        state = eng._select(done, eng._next_state(s, opt, c.tbuf, gp, gr,
+                                                  disp, heights, ci), s)
         f_cl = torch.clamp(c.frame, max=self.T - 1).long()
         for buf, val in zip(outs, (opt.decoded_latent, gp, gr, opt.t,
                                    opt.loss_pos, opt.loss_rot)):
@@ -343,10 +283,11 @@ class _EagerBlocks:
 
 
 class _Key:
-    """What a block graph serves: the model, statics and skeleton (by
-    identity), the hyperparameters, sync_k, the lanes, frames and device,
-    and the input tensors, by identity and held weakly (the graph gathers
-    from their memory; a freed input matches nothing)."""
+    """What a block graph serves, the engine's holder's test of it: the
+    model, statics and skeleton (by identity), the hyperparameters, sync_k,
+    the lanes, frames and device, and the input tensors, by identity and
+    held weakly (the graph gathers from their memory; a freed input matches
+    nothing)."""
 
     def __init__(self, block: _Block):
         self.parts = (block.model, block.statics, block.skeleton)
@@ -376,10 +317,8 @@ class _BlockGraph:
       records keep it; a later replay overwrites the buffer);
     * ``result``: the state and outputs cloned out.
 
-    The model's tensors and the inputs are read in place.  Captured on a
-    stream of its own after one eager run on it (results thrown away), in
-    the mode that lets other threads use the card meanwhile.  ``fresh``
-    until its first replay."""
+    The model's tensors and the inputs are read in place.  Captured by
+    ``_graphs.capture``.  ``fresh`` until its first replay."""
 
     plain = False
 
@@ -396,21 +335,8 @@ class _BlockGraph:
             _copy_leaves(self.carry,
                          own.targets(own.finish(self.carry, self.outs)))
 
-        self.graph = self._capture(settle, block.device)
+        self.graph, = _graphs.capture(block.device, settle)
         self.fresh = True
-
-    @staticmethod
-    def _capture(fn, device) -> torch.cuda.CUDAGraph:
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            fn()
-        return graph
 
     def start(self, block: _Block, carry: _Carry) -> None:
         _copy_leaves((self.ctx, self.limit, self.carry),
@@ -433,56 +359,21 @@ class _BlockGraph:
         return map_tree(torch.clone, (self.carry.state, self.outs))
 
 
-class BlockGraphs:
-    """An engine's block graph (its last call's), held by one thread at a
-    time (the daemon's eval jobs share engines and run on streams of their
-    own)."""
-
-    def __init__(self):
-        self.graph = None
-        self.lock = threading.Lock()
-        # recorded on the holder's stream after its last use of the buffers
-        self.released = None
-
-    @contextlib.contextmanager
-    def hold(self, block: _Block, carry: _Carry):
-        """The graph serving ``block``, captured if there is none or it
-        serves another key, started on the call.  The caller's stream
-        first waits for the last holder's work on the buffers; a capture
-        first waits on the host, since the old graph's buffers go back to
-        the allocator."""
-        device = block.device
-        with self.lock, torch.cuda.device(device):
-            if self.released is None:
-                self.released = torch.cuda.Event()
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(self.released)
-            if self.graph is None or not self.graph.key.matches(block):
-                self.released.synchronize()
-                self.graph = None    # its buffers freed before the new ones
-                self.graph = _BlockGraph(block, carry)
-            g = self.graph
-            g.start(block, carry)
-            try:
-                yield g
-            finally:
-                self.released.record(stream)
-
-
 def run_batch_pipelined(model: eng.DragModel, statics, skeleton,
                         hyper: eng.DragHyper, tparam,
                         states: eng.DragState, dqs_norm, gt_pos, gt_rot,
                         sync_k: int = 24, lengths=None,
                         fast: bool | None = None,
-                        graphs: BlockGraphs | None = None):
+                        graphs: _graphs.Holder | None = None):
     """Batched reconstruction.  ``states`` batched; ``dqs_norm`` (B, T, J*8),
     ``gt_pos`` (B, T, 3), ``gt_rot`` (B, T, 4); ``lengths`` (B,) optional
     per-lane frame counts (lanes halt there; outputs beyond are zeros).
     ``fast`` picks the inner loop: K1 (``True``) or the per-lane anchor
     step (``False``); ``None`` takes K1 whenever it can (no constraints, a
     folded decoder), and ``True`` where it cannot raises.  ``graphs``: an
-    engine's :class:`BlockGraphs`, whose graph runs each block's
-    bookkeeping where the block is graph-safe (eager without it).
+    engine's holder of its block graph (one slot, the last call's), whose
+    graph runs each block's bookkeeping where the block is graph-safe
+    (eager without it).
     Returns (final states, FrameOutput with leaves (B, T, ...))."""
     with span("dragposer.pipeline"):
         return _run(model, statics, skeleton, hyper, tparam, states,
@@ -504,7 +395,10 @@ def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
                            lengths)
             carry = block.start(states)
             if graphs is not None and block.graphable():
-                loop = stack.enter_context(graphs.hold(block, carry))
+                loop = stack.enter_context(graphs.hold(
+                    block.device, "block", lambda g: g.key.matches(block),
+                    lambda: _BlockGraph(block, carry)))
+                loop.start(block, carry)
             else:
                 loop = _EagerBlocks(block, carry)
         with span("dragposer.pipeline.wait"):
@@ -545,4 +439,4 @@ def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
             global_pos=outs.global_pos, iterations=outs.iterations,
             loss_pos=outs.loss_pos, loss_rot=outs.loss_rot,
             latent=torch.where(valid, outs.latent, 0.0))
-    return _unflatten_state(state, block.P), out
+    return state, out

@@ -4,9 +4,12 @@ engine's graphs, as the CPU runs it).
 
 On the CPU: the eager loop runs, and the anchor's launch records say so
 (``plain``), on CPU tensors, with a constraint and with an unfolded
-decoder; ``engine._graphable`` refuses the last two on the card too.  FK's
-device-resident skeleton tensors give the values and gradients of the
-per-call uploads they replace.
+decoder; ``engine._graphable`` refuses the last two on the card too.  The
+graph's buffer discipline, held by the engine's ``_graphs.Holder`` under
+faked CUDA events and streams (``tests/test_torch_graphs.py``) with its
+replays run as the eager steps they capture, gives the eager loop's
+outputs bit for bit.  FK's device-resident skeleton tensors give the
+values and gradients of the per-call uploads they replace.
 
 On the card (marked ``cuda``, skipped elsewhere; on a GPU machine run
 ``python -m pytest tests/test_torch_anchor_graph.py -q --noconftest``, as
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 import chip_smoke
+from test_torch_graphs import eager_capture, fake_cuda
 
 MODEL_DIR = "models/model_dancedb_example"
 FRAMES = 72
@@ -100,7 +104,7 @@ def test_eager_loop_where_no_graph_is_safe(cpu_setup, case):
     constraint and an unfolded decoder as well."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dragposer_tpu_torch import _build, tracing
+    from dragposer_tpu_torch import _build, _graphs, tracing
     from dragposer_tpu_torch.drag import engine as eng
     from dragposer_tpu_torch.models import loading
 
@@ -116,7 +120,7 @@ def test_eager_loop_where_no_graph_is_safe(cpu_setup, case):
     assert eng._graphable(on_card, model, hyper) == (case == "cpu")
     assert not eng._graphable(states.latent, model, hyper)
 
-    graphs = eng._AnchorGraphs()
+    graphs = _graphs.Holder()
     plain, kernel = eng.ANCHOR.plain, eng.ANCHOR.kernel
     _build.clear_launch_logs()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -131,7 +135,7 @@ def test_eager_loop_where_no_graph_is_safe(cpu_setup, case):
     assert all(r["plain"] and not r["capture"] and r["lanes"] == 2
                for r in log)
     assert eng.ANCHOR.plain - plain == len(log)
-    assert eng.ANCHOR.kernel == kernel and not graphs.by_lanes
+    assert eng.ANCHOR.kernel == kernel and not graphs.slots
     totals = tracing.counter_totals()
     assert totals["anchor_iterations"] == len(log)
     assert totals["anchor_graph_replays"] == 0
@@ -139,6 +143,52 @@ def test_eager_loop_where_no_graph_is_safe(cpu_setup, case):
     if case == "cpu":   # the engine's own method takes the same loop
         _, again = engine.run_batch(states, dqs, gp, gr)
         assert all(torch.equal(a, b) for a, b in zip(again, out))
+
+
+def test_graph_buffers_equal_eager_loop(cpu_setup, monkeypatch):
+    """``run_batch`` through the engine's holder and the graph's buffers at
+    2 lanes, 1 lane, then 2 again: states and outputs equal the eager
+    loop's bit for bit, and the earlier outputs are untouched by the later
+    runs; a graph a lane count, captured once, every iteration a replay,
+    the first of each graph a capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dragposer_tpu_torch import _build
+    from dragposer_tpu_torch.drag import engine as eng
+
+    base, states, dqs, gp, gr = cpu_setup
+    engine = base.replica("cpu")
+    one = lambda x: x[:1]  # noqa: E731
+    jobs = [(states, dqs, gp, gr),
+            (type(states)(*map(one, states)), one(dqs), one(gp), one(gr)),
+            (states._replace(latent=states.latent * 0.5), dqs, gp, gr)]
+    with eager_anchor():
+        eager = [engine.run_batch(*job) for job in jobs]
+    monkeypatch.setattr(eng, "_graphable",
+                        lambda latent0, model, hyper: True)
+    fake_cuda(monkeypatch)
+    captures = eager_capture(monkeypatch)
+    outs, kept, seen = [], [], set()
+    for job, (e_state, e_out) in zip(jobs, eager):
+        lanes = job[1].shape[0]
+        _build.clear_launch_logs()
+        with profile(activities=[ProfilerActivity.CPU]):
+            g_state, g_out = engine.run_batch(*job)
+        log = _build.launch_log("anchor")
+        _build.clear_launch_logs()
+        assert log and not any(r["plain"] for r in log)
+        assert all(r["lanes"] == lanes for r in log)
+        assert [r["capture"] for r in log] == [lanes not in seen] + [
+            False] * (len(log) - 1)
+        seen.add(lanes)
+        for a, b in zip((*g_state, *g_out), (*e_state, *e_out)):
+            assert torch.equal(a, b)
+        outs.append(g_out)
+        kept.append([x.clone() for x in g_out])
+    assert len(captures) == 2
+    assert sorted(engine._anchor_graphs.slots) == [1, 2]
+    for out, k in zip(outs, kept):
+        assert all(torch.equal(a, b) for a, b in zip(out, k))
 
 
 def _fk_with_uploads(rootspace_q, root_pos, skeleton):
@@ -283,7 +333,7 @@ def test_run_batch_graph_equals_eager(card, clip):
     kernel = eng.ANCHOR.kernel
     g_state, g_out = engine.run_batch(states, dqs, gp, gr)
     assert eng.ANCHOR.kernel - kernel > 0
-    assert 5 in engine._anchor_graphs.by_lanes
+    assert 5 in engine._anchor_graphs.slots
     for got, ref in zip((*g_state, *g_out), (*e_state, *e_out)):
         assert torch.equal(got, ref)
     kept = [x.clone() for x in g_out]
@@ -308,7 +358,7 @@ def test_run_batch_on_two_streams_equals_eager(card, clip):
              gp.flip(1), gr.flip(1))]
     with eager_anchor():
         eager = [engine.run_batch(*job) for job in jobs]
-    assert not engine._anchor_graphs.by_lanes
+    assert not engine._anchor_graphs.slots
     got = [[], []]
     barrier = threading.Barrier(2)
 
@@ -326,7 +376,7 @@ def test_run_batch_on_two_streams_equals_eager(card, clip):
         t.start()
     for t in threads:
         t.join()
-    assert list(engine._anchor_graphs.by_lanes) == [5]
+    assert list(engine._anchor_graphs.slots) == [5]
     for runs, (e_state, e_out) in zip(got, eager):
         assert len(runs) == 3
         for g_state, g_out in runs:

@@ -94,14 +94,17 @@ def test_sources_found():
 
 def test_every_jax_module_has_a_counterpart():
     """The port has a module for every module of the JAX package; its own
-    extras are the kernel build, the device choice and the tracing."""
+    extras are the kernel build, the device choice, the tracing and the
+    CUDA graphs' capture and holding (``_graphs.py``: JAX has no
+    counterpart, its programs are compiled whole)."""
     def modules(pkg):
         return {str(p.relative_to(ROOT / pkg))
                 for p in (ROOT / pkg).rglob("*.py")}
 
     jax_side, port = modules("dragposer_tpu"), modules("dragposer_tpu_torch")
     assert jax_side - port == set()
-    assert port - jax_side == {"_build.py", "_device.py", "tracing.py"}
+    assert port - jax_side == {"_build.py", "_device.py", "tracing.py",
+                               "_graphs.py"}
     assert (ROOT / "dragposer_tpu_torch" / "client" / "viewer.html").exists()
 
 

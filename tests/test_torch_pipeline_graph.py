@@ -1,5 +1,5 @@
 """The pipeline's block bookkeeping as a CUDA graph (``pipeline._BlockGraph``,
-held by an engine's ``pipeline.BlockGraphs``) and the eager blocks it
+held by an engine's ``_graphs.Holder``) and the eager blocks it
 stands in for (``graphs=None``, as the CPU runs them), on the benchmark's
 configurations at small sizes (``benchmark/drivers``' ``Setup``).
 
@@ -8,9 +8,12 @@ per-lane loop, constraints) and their ``"block"`` records say so
 (``plain``); the holder's key refuses another model, hyperparameters,
 sync_k, lane count, frame count or input tensor; the device-resident
 indices of ``engine._advance_core`` and ``engine._temporal_rollout_core_T``
-give the outputs of per-call uploads; and the graph's buffer discipline,
-its replay run as the eager phases it captures, gives the eager path's
-outputs bit for bit, the first call's outputs untouched by a second.
+give the outputs of per-call uploads, and ``engine._rollout_inputs``
+uploads nothing a call; and the graph's buffer discipline, held by the
+engine's holder under faked CUDA events and streams
+(``tests/test_torch_graphs.py``) with its replay run as the eager phases
+it captures, gives the eager path's outputs bit for bit, the first call's
+outputs untouched by a second.
 
 On the card (marked ``cuda``, skipped elsewhere; on a GPU machine run
 ``python -m pytest tests/test_torch_pipeline_graph.py -q --noconftest``,
@@ -24,7 +27,6 @@ and, while a profiler records, the K1 and rollout records.
 import contextlib
 import copy
 import threading
-import types
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark import harness
+from test_torch_graphs import eager_capture, fake_cuda
 
 SEED = 2147483659
 SYNC_K = 4
@@ -153,7 +156,7 @@ def test_eager_blocks_where_no_graph_is_safe(cpu6, case):
     assert blocks and all(r["plain"] and not r["capture"]
                           and r["lanes"] == 6 for r in blocks)
     assert pipeline.BLOCKS.plain - plain == len(blocks)
-    assert engine._block_graphs.graph is None
+    assert not engine._block_graphs.slots
     assert totals["pipeline_blocks"] == len(blocks)
     assert totals["pipeline_graph_replays"] == 0
     assert totals["pipeline_graph_captures"] == 0
@@ -244,39 +247,87 @@ def test_kept_indices_equal_per_call_uploads(cpu6, cpu4, cell, monkeypatch):
     assert roll_k.shape == (B, hyper.temporal_future_window + 1, L)
 
 
-class _EagerReplayHolder:
-    """``BlockGraphs.hold`` on the CPU: the graph's buffers, starts, copies
-    and clones, its replay the eager phases it would capture."""
+def _rollout_inputs_as_uploads(state, hyper):
+    """The rollout's inputs as the anchor gathered them, its indices
+    uploaded every call, and as the pipeline did, from (B, P·C) copies of
+    the rings by flat indices."""
+    dev, step = state.latent.device, hyper.sample_step
+    past = torch.as_tensor(hyper.past_frames, device=dev)
+    latp = state.latent_buffer[:, past]
+    acc = past[:-1, None] + torch.arange(step, device=dev)[None]
+    anchor = (latp[:, :-1], state.displacement_buffer[:, acc].sum(dim=2),
+              state.heights_buffer[:, past[:-1]], latp[:, -1])
+    B, n = state.latent.shape[0], len(past)
+    L, H = state.latent.shape[-1], state.heights_buffer.shape[-1]
+    flat = lambda x: x.reshape(B, -1).contiguous()  # noqa: E731
+    latp = flat(state.latent_buffer)[:, (past[:, None] * L + torch.arange(
+        L)).ravel()].reshape(B, n, L)
+    disp = flat(state.displacement_buffer)[:, (acc[..., None] * 3
+                                               + torch.arange(3)).ravel()]
+    heights = flat(state.heights_buffer)[:, (past[:-1, None] * H
+                                             + torch.arange(H)).ravel()]
+    pipeline = (latp[:, :-1], disp.reshape(B, n - 1, step, 3).sum(dim=2),
+                heights.reshape(B, n - 1, H), latp[:, -1])
+    return anchor, pipeline
 
-    def __init__(self):
-        self.graph, self.captures = None, 0
 
-    @contextlib.contextmanager
-    def hold(self, block, carry):
-        from dragposer_tpu_torch.drag import pipeline
+@pytest.mark.parametrize("cell", ["offline_6trk_mixed",
+                                  "offline_4trk_equal"])
+def test_rollout_inputs_take_kept_indices(cpu6, cpu4, cell, monkeypatch):
+    """``engine._rollout_inputs`` on random rings: two calls gather by the
+    same kept index tensors and make none from the host; the inputs equal,
+    bit for bit, the anchor's per-call uploads and the pipeline's flat
+    gathers they replace."""
+    from dragposer_tpu_torch.drag import engine as eng
 
-        if self.graph is None or not self.graph.key.matches(block):
-            self.graph = pipeline._BlockGraph(block, carry)
-            self.captures += 1
-        self.graph.start(block, carry)
-        yield self.graph
+    s = cpu6 if cell == "offline_6trk_mixed" else cpu4
+    hyper = s.engine.hyper
+    gen = torch.Generator().manual_seed(5)
+    state = _states(s)
+    state = state._replace(**{
+        name: torch.randn(getattr(state, name).shape, generator=gen)
+        for name in ("latent_buffer", "displacement_buffer",
+                     "heights_buffer")})
+    refs = _rollout_inputs_as_uploads(state, hyper)
+    taken = []
+    kept = eng._index_tensor
+
+    def spy(values, device):
+        taken.append(kept(values, device))
+        return taken[-1]
+
+    def upload(*args, **kw):
+        raise AssertionError("a tensor made from the host")
+
+    monkeypatch.setattr(eng, "_index_tensor", spy)
+    first = eng._rollout_inputs(state, hyper)
+    for name in ("as_tensor", "tensor", "arange", "from_numpy"):
+        monkeypatch.setattr(torch, name, upload)
+    second = eng._rollout_inputs(state, hyper)
+    monkeypatch.undo()
+    n = len(taken) // 2
+    assert n > 0 and len(taken) == 2 * n
+    assert all(a is b for a, b in zip(taken[:n], taken[n:]))
+    for ref in (*refs, second):
+        assert all(torch.equal(a, b) for a, b in zip(first, ref))
 
 
 @pytest.mark.parametrize("cell", ["offline_6trk_mixed",
                                   "offline_4trk_equal"])
 def test_graph_buffers_equal_eager_blocks(cpu6, cpu4, cell, monkeypatch):
-    """Two calls through the graph's buffers (other lengths, the same
-    inputs: one capture) equal the eager blocks bit for bit; the first
-    call's outputs are untouched by the second; the records say replays,
-    the first a capture, and keep copies of the buffers K1 and the rollout
-    read."""
+    """Two calls through the engine's holder and the graph's buffers
+    (other lengths, the same inputs: one capture) equal the eager blocks
+    bit for bit; the first call's outputs are untouched by the second; the
+    records say replays, the first a capture, and keep copies of the
+    buffers K1 and the rollout read."""
+    from dragposer_tpu_torch import _graphs
     from dragposer_tpu_torch.drag import pipeline
 
     s = cpu6 if cell == "offline_6trk_mixed" else cpu4
     monkeypatch.setattr(pipeline._Block, "graphable", lambda self: True)
-    monkeypatch.setattr(pipeline._BlockGraph, "_capture", staticmethod(
-        lambda fn, device: types.SimpleNamespace(replay=fn)))
-    holder = _EagerReplayHolder()
+    fake_cuda(monkeypatch)
+    captures = eager_capture(monkeypatch)
+    holder = _graphs.Holder()
     states = _states(s)
     results, kept = [], []
     for seed in (3, 4):
@@ -291,12 +342,13 @@ def test_graph_buffers_equal_eager_blocks(cpu6, cpu4, cell, monkeypatch):
         assert blocks and not any(r["plain"] for r in blocks)
         assert [r["capture"] for r in blocks] == [seed == 3] + [False] * (
             len(blocks) - 1)
-        buffers = [holder.graph.carry.opt.t, holder.graph.carry.frame]
+        graph = holder.slots["block"]
+        buffers = [graph.carry.opt.t, graph.carry.frame]
         for r in logs["K1"]:
             assert all(r["t0"] is not b for b in buffers)
-        assert all(r["frame"] is not holder.graph.carry.frame
+        assert all(r["frame"] is not graph.carry.frame
                    for r in logs["rollout"])
-    assert holder.captures == 1
+    assert len(captures) == 1 and list(holder.slots) == ["block"]
     for x, y in zip(_leaves(results[0]), kept[0]):
         assert torch.equal(x, y)
     assert not torch.equal(results[0][1].iterations,
@@ -383,7 +435,8 @@ def test_calls_with_other_lengths_and_inputs(card):
         captures.append(sum(r["capture"] for r in logs["block"]))
         assert not any(r["plain"] for r in logs["block"])
     assert captures == [1, 0, 1]
-    assert s.engine._block_graphs.graph.key.matches(pipeline._Block(
+    graph = s.engine._block_graphs.slots["block"]
+    assert graph.key.matches(pipeline._Block(
         s.engine.model, s.engine.statics, s.engine.skeleton, s.engine.hyper,
         s.engine.tparam, True, SYNC_K, states, *flipped, None))
     for got, k in zip(outs, kept):
