@@ -1740,8 +1740,9 @@ def check_windowed_against_cpu(config: str, bvh, B: int = 24, T: int = 24
     tests/test_torch_pipeline.py staggers them), held by the one-step gate
     of :func:`check_against_cpu`.  Every K2 launch of the card run is
     recorded with its lane count: the run must launch K2, run none of its
-    plain twin, and roll out at least one sub-batch of at most
-    ``engine.rollout_lane_budget(B, window)`` lanes."""
+    plain twin, and roll out at least one sub-batch of fewer than ``B``
+    lanes and at most the lanes that ``engine.rollout_lane_budget(B,
+    window)`` needing lanes take (:func:`rollout_lanes`)."""
     import collections
 
     from dragposer_tpu_torch.drag import engine as eng
@@ -1763,11 +1764,29 @@ def check_windowed_against_cpu(config: str, bvh, B: int = 24, T: int = 24
                 "k2_launches_by_lanes": dict(sorted(
                     collections.Counter(lanes).items())),
                 "lane_budget": budget,
-                "sub_batch_launches": sum(1 for n in lanes
-                                          if n <= budget and n < B)})
+                "sub_batch_launches": sum(
+                    1 for n in lanes
+                    if n <= rollout_lanes(gpu_engine, B, budget) and n < B)})
     res["ok"] = (res.pop("one_step_ok") and launches == len(lanes) > 0
                  and plain == 0 and res["sub_batch_launches"] > 0)
     return res
+
+
+def rollout_lanes(engine, B: int, n: int) -> int:
+    """K2's lanes in a rollout of ``n`` needing lanes of ``B`` on
+    ``engine`` (``engine._sub_batch``: ``n`` in whole blocks of K2, then
+    the batch's partial block; or the whole batch)."""
+    import torch
+
+    from dragposer_tpu_torch.drag import engine as eng
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    h = engine.hyper
+    need = torch.zeros(B, dtype=torch.bool)
+    need[:n] = True
+    idx = eng._sub_batch(need, n, temporal_fused.lanes_per_block(
+        len(h.past_frames) - 1, eng._decoder_steps(h)))
+    return B if idx is None else int(idx.numel())
 
 
 @contextlib.contextmanager
@@ -3313,7 +3332,8 @@ def realtime_batch_phase(skeleton_path: str, bvh, n: int = N_CROWD,
     res["rollout_lane_budget"] = budget
     # staggered phases must keep every rollout inside the sub-batch budget
     res["ok"] = ok and max(res["staggered"]["k2_lanes_per_launch"],
-                           default=0) <= budget
+                           default=0) <= rollout_lanes(card._engine, n,
+                                                       budget)
     return res
 
 

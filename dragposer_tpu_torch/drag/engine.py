@@ -209,6 +209,11 @@ def _hold_index(window: int, step: int) -> np.ndarray:
     return np.minimum(np.arange(window + 1) // step + 1, window // step)
 
 
+def _decoder_steps(hyper: DragHyper) -> int:
+    """The rollout's autoregressive steps, one K2 call each."""
+    return hyper.temporal_future_window // hyper.sample_step + 1
+
+
 def _temporal_rollout_core_T(model: DragModel, hyper: DragHyper, tparam,
                              lat, disp_acc, heights, token0):
     """Autoregressive prediction of the next ``window+1`` latents, whole
@@ -219,7 +224,7 @@ def _temporal_rollout_core_T(model: DragModel, hyper: DragHyper, tparam,
     B, latent_dim = token0.shape
     lat = (lat - model.means_latent) / model.stds_latent
     enc_in = torch.cat((lat, disp_acc, heights), dim=-1).contiguous()
-    n_steps = hyper.temporal_future_window // step + 1
+    n_steps = _decoder_steps(hyper)
     longest = temporal_fused.max_sequence(model.temporal)
     if n_steps > longest:
         raise ValueError(
@@ -245,48 +250,86 @@ def _temporal_rollout_core_T(model: DragModel, hyper: DragHyper, tparam,
 
 
 def rollout_lane_budget(batch: int, window: int) -> int:
-    """Sub-batch size above which :func:`_rollout_where_needed` runs the
-    whole batch: ~B/W lanes cross a window boundary per frame, 2× that
-    rounded up to 8.  window ≤ 1 returns ``batch``."""
+    """The lanes a windowed rollout expects at most: ~B/W lanes cross a
+    window boundary per frame, 2× that rounded up to 8.  Where it is below
+    the batch, :func:`_rollout_where_needed` counts its needing lanes on
+    the host; window ≤ 1 returns ``batch`` (every frame is a boundary)."""
     per_frame = max(1, (batch * 2 + window - 1) // max(window, 1))
     r = ((per_frame + 7) // 8) * 8
     return min(batch, max(r, 8))
 
 
+def _needed_first(need, m: int):
+    """The first ``m`` lanes of a stable partition of the batch, the lanes
+    in ``need`` before the others, each group in lane order: an argsort of
+    ``~need`` by a prefix sum and a scatter, all on the device (no host
+    read, so no wait for it)."""
+    ar = torch.arange(need.shape[0], device=need.device)
+    before = torch.cumsum(need, 0)        # needing lanes up to each lane
+    rank = torch.where(need, before - 1, need.sum() + ar - before)
+    return torch.empty_like(rank).scatter_(0, rank, ar)[:m]
+
+
+def _sub_batch(need, n: int, g: int):
+    """The lanes (m,) of a sub-batch that holds every lane of ``need``,
+    given ``n`` ≥ their count, or None where it would be the whole batch.
+    K2 runs ``g`` lanes a block, and a lane's bits depend on its block's
+    lane count (a block of ≤ 64 rows splits its FF's hidden over two
+    warpgroups and adds the halves): so each lane keeps a block of the
+    size it has in the whole batch.  Of the lanes in whole blocks, the
+    needing ones first, in ⌈n/g⌉ whole blocks (:func:`_needed_first`);
+    then the batch's last, partial block as it is."""
+    B = need.shape[0]
+    whole = B - B % g
+    body = min(whole, -(-n // g) * g)
+    if body == whole:
+        return None
+    idx = _needed_first(need[:whole], body)
+    if whole == B:
+        return idx
+    return torch.cat((idx, torch.arange(whole, B, device=need.device)))
+
+
 def _rollout_where_needed(model: DragModel, hyper: DragHyper, tparam,
                           lat, disp_acc, heights, token0, need,
-                          target_buffer, frame=None, limit=None):
+                          target_buffer, frame=None, limit=None,
+                          lanes: int | None = None):
     """Run the rollout only where ``need`` and return ``target_buffer`` with
-    those lanes' rows replaced.  At window 0 the budget is the whole batch,
-    so this is one full-batch rollout and a select, as in the JAX package.
-    For windowed configs the needing lanes (≤ budget) are gathered into a
-    sub-batch; the per-lane arithmetic of K2 does not depend on the other
-    lanes, so the result equals the full-batch one.  ``frame`` and
-    ``limit`` (B,), where given, are only logged (``ROLLOUTS``): a needing
-    lane begins a real frame where ``frame < limit``."""
+    those lanes' rows replaced.  K2 runs on a sub-batch (:func:`_sub_batch`)
+    sized by a bound on the needing lanes: at a window (budget below the
+    batch), their count read on the host; at window ≤ 1, ``lanes`` where
+    the caller holds such a bound (the pipeline's count of active lanes),
+    with no host read, else the whole batch.  K2's per-lane arithmetic
+    does not depend on the other lanes of a block of the same size, so the
+    result equals the full-batch rollout and select (the JAX package's)
+    bit for bit.  ``frame`` and ``limit`` (B,), where given, are only
+    logged (``ROLLOUTS``): a needing lane begins a real frame where
+    ``frame < limit``."""
     B = token0.shape[0]
-    r = rollout_lane_budget(B, hyper.temporal_future_window)
-    if r < B:
+    if rollout_lane_budget(B, hyper.temporal_future_window) < B:
         with span("dragposer.rollout.wait"):
-            idx = torch.nonzero(need).flatten()
-            n = int(idx.numel())
-        if n == 0:
-            return target_buffer
-        if n <= r:
-            with span("dragposer.rollout"):
-                ROLLOUTS.launched(lanes=n, need=need, frame=frame,
-                                  limit=limit)
-                sub = _temporal_rollout_core_T(
-                    model, hyper, tparam, lat[idx], disp_acc[idx],
-                    heights[idx], token0[idx])
-                out = target_buffer.clone()
-                out[idx] = sub
-                return out
+            n = int(need.sum())
+    else:
+        n = B if lanes is None else lanes
+    if n == 0:
+        return target_buffer
+    idx = _sub_batch(need, n, temporal_fused.lanes_per_block(
+        lat.shape[1], _decoder_steps(hyper)))
     with span("dragposer.rollout"):
-        ROLLOUTS.launched(lanes=B, need=need, frame=frame, limit=limit)
-        new_buffer = _temporal_rollout_core_T(model, hyper, tparam, lat,
-                                              disp_acc, heights, token0)
-        return torch.where(need[:, None, None], new_buffer, target_buffer)
+        ROLLOUTS.launched(lanes=B if idx is None else idx.shape[0],
+                          need=need, frame=frame, limit=limit)
+        if idx is None:
+            new_buffer = _temporal_rollout_core_T(
+                model, hyper, tparam, lat, disp_acc, heights, token0)
+            return torch.where(need[:, None, None], new_buffer,
+                               target_buffer)
+        sub = _temporal_rollout_core_T(
+            model, hyper, tparam, *[x.index_select(0, idx) for x in
+                                    (lat, disp_acc, heights, token0)])
+        keep = target_buffer.index_select(0, idx)
+        return target_buffer.clone().index_copy_(
+            0, idx, torch.where(need.index_select(0, idx)[:, None, None],
+                                sub, keep))
 
 
 def _rollout_inputs(state: DragState, hyper: DragHyper):

@@ -9,8 +9,10 @@ buffers, compact output write), take their next frame's ground-truth
 kernel K2).  A straggler frame in one lane does not stall the others.  The
 pose is decoded once, after the loop, from the stored per-frame latents.
 
-The loop's ``any(frame < limit)`` is a host check once per block, made at
-the end of the block before (the first in the prologue).  The inner loop
+The loop's count of active lanes (``frame < limit``) is a host read once
+per block, made at the end of the block before (the first in the
+prologue); the block's rollout runs on at most that many lanes (the
+lanes that finish a frame are among them).  The inner loop
 is K1 (the batch-in-lanes fast path) unless ``hyper.constraints`` is set or
 the decoder is unfolded: then each block runs up to ``sync_k`` masked
 iterations of the anchor's ``engine._opt_body`` (autograd, targets per
@@ -92,7 +94,7 @@ class _Carry(NamedTuple):
     frame: torch.Tensor        # (B,) int32
     lane_active: torch.Tensor  # (B,) frame < limit
     done: torch.Tensor         # (B,) the lanes that finished a frame
-    more: torch.Tensor         # () whether any lane is active
+    n_active: torch.Tensor     # () int64, the lanes of lane_active
 
 
 class _Outs(NamedTuple):
@@ -142,14 +144,14 @@ class _Block:
         new.__dict__.update(buffers)
         return new
 
-    def _begin_all(self, s: eng.DragState, began, f_idx):
+    def _begin_all(self, s: eng.DragState, began, f_idx, lanes: int):
         if not self.hyper.use_temporal:
             return s.target_buffer, torch.zeros_like(s.latent)
         tbuf = eng._rollout_where_needed(
             self.model, self.hyper, self.tparam,
             *eng._rollout_inputs(s, self.hyper),
             began & (s.current_index == 0), s.target_buffer,
-            frame=f_idx, limit=self.limit)
+            frame=f_idx, limit=self.limit, lanes=lanes)
         return tbuf, tbuf[self.ar, s.current_index.long()]
 
     def _targets_all(self, s: eng.DragState, f_idx):
@@ -176,7 +178,7 @@ class _Block:
         B, dev = self.B, self.device
         frame = torch.zeros(B, dtype=torch.int32, device=dev)
         tbuf, tlat = self._begin_all(
-            state, torch.ones(B, dtype=torch.bool, device=dev), frame)
+            state, torch.ones(B, dtype=torch.bool, device=dev), frame, B)
         tpos, trot = self._targets_all(state, frame)
         lane_active = frame < self.limit
         return _Carry(
@@ -185,7 +187,7 @@ class _Block:
             tpos=tpos, trot=trot, tbuf=tbuf, tlat=tlat, frame=frame,
             lane_active=lane_active,
             done=torch.zeros(B, dtype=torch.bool, device=dev),
-            more=lane_active.any())
+            n_active=lane_active.sum())
 
     def new_outs(self) -> _Outs:
         z = lambda *s, dtype=torch.float32: torch.zeros(  # noqa: E731
@@ -246,12 +248,15 @@ class _Block:
                                               self.skeleton.n_joints), c.opt)
         lane_active = c.frame < self.limit
         return c._replace(tpos=tpos, trot=trot, opt=opt,
-                          lane_active=lane_active, more=lane_active.any())
+                          lane_active=lane_active,
+                          n_active=lane_active.sum())
 
-    def begin(self, c: _Carry, frame) -> tuple:
+    def begin(self, c: _Carry, frame, lanes: int) -> tuple:
         """The advanced lanes begin their frame (``frame``: the carry's, or
-        a copy the rollout's record keeps): ``(tbuf, tlat)``."""
-        tbuf, tlat = self._begin_all(c.state, c.done, frame)
+        a copy the rollout's record keeps; ``lanes``: the count of lanes
+        active in the block, read before it, which bounds the advanced
+        lanes): ``(tbuf, tlat)``."""
+        tbuf, tlat = self._begin_all(c.state, c.done, frame, lanes)
         return (eng._select(c.done, tbuf, c.tbuf),
                 eng._select(c.done, tlat, c.tlat))
 
@@ -402,11 +407,12 @@ def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
             else:
                 loop = _EagerBlocks(block, carry)
         with span("dragposer.pipeline.wait"):
-            go = bool(loop.carry.more)
+            active = int(loop.carry.n_active)
 
-        # global loop: K masked Adam steps, the bookkeeping, the rollout,
-        # then a sync point (the check of whether another block runs)
-        while go:
+        # global loop: K masked Adam steps, the bookkeeping, the rollout on
+        # at most the lanes active in the block, then a sync point (the
+        # count of the lanes active in the next)
+        while active:
             with span("dragposer.block"):
                 BLOCKS.launched(plain=loop.plain, lanes=block.B,
                                 capture=loop.fresh)
@@ -418,10 +424,10 @@ def _run(model, statics, skeleton, hyper, tparam, states, dqs_norm, gt_pos,
                 loop.settle()
                 with span("dragposer.block.begin"):
                     c = loop.carry
-                    tbuf, tlat = block.begin(c, loop.kept(c.frame))
+                    tbuf, tlat = block.begin(c, loop.kept(c.frame), active)
                     loop.put(tbuf=tbuf, tlat=tlat)
                 with span("dragposer.block.wait"):
-                    go = bool(loop.carry.more)
+                    active = int(loop.carry.n_active)
         state, outs = loop.result()
 
     # epilogue: one batched decode of the stored latents (plain matmuls)

@@ -455,9 +455,9 @@ class RealtimeBatch:
         budget instead of the whole crowd re-predicting on the same frame
         every W frames (see ``_stagger_fill``).  Avatars that join an
         already running batch later (daemon coalescing) start at phase 0
-        and are staggered by their join time; a burst of more joiners than
-        the budget on one frame degrades that frame to the full-batch
-        rollout (``engine._rollout_where_needed``)."""
+        and are staggered by their join time; a burst of joiners on one
+        frame rolls out all of them in that frame's sub-batch
+        (``engine._rollout_where_needed``)."""
         engine = self._engine
         n, j = self.n_avatars, self.skeleton.n_joints
         latent_dim = cfg.VAE_PARAM["latent_dim"]

@@ -23,9 +23,11 @@ The spans, outermost first:
   frame's targets, their selects, Adam's re-init, the lanes still
   active), or on the card ``.graph`` (one replay of the block's CUDA
   graph of both); then ``.begin`` (the rollout and its selects) and
-  ``.wait`` (the check of whether another block runs);
+  ``.wait`` (the count of active lanes: whether another block runs, and
+  on how many lanes its rollout may run);
 * ``dragposer.rollout``: ``engine._rollout_where_needed`` where K2 runs;
-  ``dragposer.rollout.wait``: its ``nonzero`` of the lanes that need it;
+  ``dragposer.rollout.wait``: at a window, its count of the lanes that
+  need it;
 * ``dragposer.to_host`` (``.wait``): ``engine.to_host``;
 * ``dragposer.frame``: ``RealtimeSession.drag_pose``, one session frame;
   in it ``dragposer.frame.begin`` (``engine._begin_frame``, its check in

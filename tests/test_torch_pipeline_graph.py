@@ -21,7 +21,10 @@ as ``tests/conftest.py`` imports jax), the graph against the eager blocks,
 bit for bit: the 6-tracker configuration at ragged lengths, the windowed
 4-tracker one, the 52-joint rig on K1's general build, two calls on one
 engine with other lengths and other inputs, two streams on one engine,
-and, while a profiler records, the K1 and rollout records.
+and, while a profiler records, the K1 and rollout records.  The rollout's
+sub-batches against every rollout on the whole batch
+(``full_batch_rollouts``), bit for bit, at window 0 and 16, and a block's
+``begin`` under the sync debug mode's ``"error"``.
 """
 
 import contextlib
@@ -94,6 +97,32 @@ def _equal(got, ref):
     assert len(a) == len(b)
     for n, (x, y) in enumerate(zip(a, b)):
         assert torch.equal(x, y), n
+
+
+def full_batch_rollouts(m) -> None:
+    """Every rollout on the whole batch and a select, with no sub-batch:
+    the window's budget at the batch and the pipeline's lane count dropped
+    (``m``: a ``monkeypatch``)."""
+    from dragposer_tpu_torch.drag import engine as eng
+
+    where_needed = eng._rollout_where_needed
+    m.setattr(eng, "rollout_lane_budget", lambda batch, window: batch)
+    m.setattr(eng, "_rollout_where_needed",
+              lambda *args, lanes=None, **kw: where_needed(*args, **kw))
+
+
+def _k2_rows(monkeypatch) -> list:
+    """The rows (lanes) of each K2 call, in order, from here on."""
+    from dragposer_tpu_torch.ops import temporal_fused
+
+    rows, forward = [], temporal_fused.forward
+
+    def spy(packed, param, enc_in, *rest):
+        rows.append(enc_in.shape[0])
+        return forward(packed, param, enc_in, *rest)
+
+    monkeypatch.setattr(temporal_fused, "forward", spy)
+    return rows
 
 
 @contextlib.contextmanager
@@ -397,6 +426,63 @@ def test_4trk_windowed_graph_equals_eager(card):
     before = _build.kernel_launches()["K2"]
     _graphed_equals_eager(s, _ragged(s, 5))
     assert _build.kernel_launches()["K2"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["6trk_ragged", "4trk_windowed"])
+def test_sub_batch_rollouts_equal_full_batch(card, case, monkeypatch):
+    """The graph path with the rollout's sub-batches against the same path
+    with every rollout on the whole batch: equal bit for bit; K2 ran on
+    fewer lanes than the batch in all."""
+    if case == "6trk_ragged":
+        s = _setup("offline_6trk_mixed", 64, 24, card, max_iter=100)
+        lengths = _ragged(s)
+    else:
+        s = _setup("offline_4trk_equal", 48, 40, card, max_iter=100)
+        lengths = _ragged(s, 5)
+    B, states = lengths.shape[0], _states(s)
+    rows = _k2_rows(monkeypatch)
+    got = s.engine.run_batch_pipelined(states, *_inputs(s), sync_k=SYNC_K,
+                                       lengths=lengths)
+    ran = list(rows)
+    with monkeypatch.context() as m:
+        full_batch_rollouts(m)
+        del rows[:]
+        ref = s.engine.run_batch_pipelined(states, *_inputs(s),
+                                           sync_k=SYNC_K, lengths=lengths)
+    _equal(got, ref)
+    assert ran and sum(ran) < B * len(ran)
+    assert rows and all(n == B for n in rows)
+
+
+@pytest.mark.cuda
+def test_6trk_begin_makes_no_host_sync(card, monkeypatch):
+    """Each block's ``begin`` of a 6-tracker pass at ragged lengths (the
+    compaction, the gathers, K2 and the write-back) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a synchronising call
+    raises; a first pass has kept the indices and loaded K2.  Some blocks
+    rolled out fewer lanes than the batch."""
+    from dragposer_tpu_torch.drag import pipeline
+
+    s = _setup("offline_6trk_mixed", 64, 24, card, max_iter=100)
+    states, lengths = _states(s), _ragged(s)
+    s.engine.run_batch_pipelined(states, *_inputs(s), sync_k=SYNC_K,
+                                 lengths=lengths)
+    given, begin = [], pipeline._Block.begin
+
+    def strict(self, c, frame, lanes):
+        given.append(lanes)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return begin(self, c, frame, lanes)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(pipeline._Block, "begin", strict)
+    s.engine.run_batch_pipelined(states, *_inputs(s), sync_k=SYNC_K,
+                                 lengths=lengths)
+    torch.cuda.synchronize()
+    assert given and min(given) < lengths.shape[0]
 
 
 @pytest.mark.cuda

@@ -23,9 +23,10 @@ import chip_smoke
 torch.set_num_threads(1)
 MODEL_DIR = "models/model_dancedb_example"
 LENGTHS = np.array([10, 7, 10, 3, 9, 10], np.int32)
-# 12 lanes, more than the rollout's budget of 8 at window 16; past frame 16
-# the lanes reach their window boundary in different blocks
-WINDOWED_LENGTHS = np.array([20, 17, 20, 18] * 3, np.int32)
+# 24 lanes, more than the rollout's budget of 8 at window 16, in K2's
+# blocks of 9, 9 and 6; past frame 16 the lanes reach their window
+# boundary in different blocks
+WINDOWED_LENGTHS = np.array([20, 17, 20, 18] * 6, np.int32)
 SYNC_K, MAX_ITER = 4, 8
 PHASES = ("k1", "finish", "targets", "begin", "wait")
 
@@ -189,16 +190,18 @@ def test_k2_log_matches_the_rollouts(case, request):
 
 
 def test_windowed_rollouts_run_sub_batches(four):
-    """12 lanes at window 16: the budget is 8, so the prologue's rollout
-    runs on every lane and later ones on the lanes that need it, where
-    they are 8 or fewer."""
+    """24 lanes at window 16: the budget is 8, so the prologue's rollout
+    runs on every lane and later ones on a sub-batch around the lanes
+    that need it, where they fit in one whole block of K2 (9 lanes): that
+    block and the batch's partial one of 6."""
     from dragposer_tpu_torch import tracing
 
     _, _, spans, (_, _, rollouts), _ = four
+    B = len(WINDOWED_LENGTHS)
     lanes = [r["lanes"] for r in rollouts]
-    assert lanes[0] == len(WINDOWED_LENGTHS) and min(lanes) < 8
-    assert all(int(r["need"].sum()) == r["lanes"] for r in rollouts
-               if r["lanes"] <= 8)
+    assert lanes[0] == B and min(lanes) == 9 + 6
+    assert all(r["lanes"] == 15 for r in rollouts
+               if 0 < int(r["need"].sum()) <= 9)
     assert all(int(tracing.needed_lanes(r)) <= r["lanes"] for r in rollouts)
     waits = [s for s in spans if s[2] == "dragposer.rollout.wait"]
     assert len(waits) >= len(rollouts) - 1
