@@ -15,6 +15,9 @@ call's).  Both follow the rules here:
   and a graph made anew first waits for that work on the host and drops
   the old graph, since its buffers go back to the allocator before the new
   ones are made.
+
+The batched beam (``drag/hypotheses``) holds its chunk buffers, which the
+block graph reads, the same way; on the CPU a holder is its lock alone.
 """
 
 from __future__ import annotations
@@ -61,6 +64,13 @@ class Holder:
         """The graph in ``slot`` for the ``with`` body, on ``device``: kept
         while ``matches(graph)`` holds, else (or where there is none) the
         old one dropped and ``make()``'s taken."""
+        if torch.device(device).type != "cuda":
+            with self.lock:
+                if slot not in self.slots or not matches(self.slots[slot]):
+                    self.slots.pop(slot, None)
+                    self.slots[slot] = make()
+                yield self.slots[slot]
+            return
         with self.lock, torch.cuda.device(device):
             if self.released is None:
                 self.released = torch.cuda.Event()

@@ -253,7 +253,10 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
     """Reconstruct many sequences concurrently: one pipelined batch (each
     file ``restarts`` times, the lowest fit loss kept per file), or with
     ``restarts > 1`` and ``branch_every > 0`` the hypothesis beam per file
-    (``hypotheses.run_hypotheses_batched``).  The pipelined batch runs
+    (``hypotheses.run_hypotheses_batched``: each chunk of ``branch_every``
+    frames one pipelined batch of every file's lanes, ``sync_k`` as the
+    batch's, the selection on the device, only the winners copied out;
+    on one device).  The pipelined batch runs
     data-parallel over ``mesh_devices`` local devices of the engine's kind
     (``parallel.mesh.local_devices``; default 1: this one):
     :func:`_run_sharded`, with the per-device engine replicas built before
@@ -289,7 +292,7 @@ def evaluate_batched(engine: DragEngine, means, stds, skeleton, files, *,
         out, cum = hypotheses.run_hypotheses_batched(
             engine, gen, R, dqs, gp, gr, h0, dqs[:, 0][:, :, None],
             lengths=np.asarray(lengths), branch_every=branch_every,
-            sigma=branch_sigma, survivors=branch_survivors)
+            sigma=branch_sigma, survivors=branch_survivors, sync_k=sync_k)
         print(f"hypotheses: {R}-lane beam per file (top {branch_survivors} "
               f"survive, resample every {branch_every} frames); kept "
               f"{cum.argmin(axis=1).tolist()}")

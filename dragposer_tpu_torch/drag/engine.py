@@ -857,7 +857,9 @@ class DragEngine:
     captured at a lane count's first frame; ``run_batch_pipelined`` runs
     each block's bookkeeping through the engine's block graph, captured for
     a call's shapes and input tensors.  Each kind is held by a
-    ``_graphs.Holder`` of the engine's; ``replica`` starts with none.
+    ``_graphs.Holder`` of the engine's, as are the batched beam's chunk
+    buffers (``hypotheses.run_hypotheses_batched``); ``replica`` starts
+    with none.
     """
 
     def __init__(self, model: DragModel, statics, skeleton: Skeleton,
@@ -871,6 +873,7 @@ class DragEngine:
         self._replica_models = {}
         self._anchor_graphs = _graphs.Holder()
         self._block_graphs = _graphs.Holder()
+        self._beam_buffers = _graphs.Holder()
 
     def replica(self, device) -> "DragEngine":
         """The same engine on another device: every model tensor (the
@@ -889,6 +892,7 @@ class DragEngine:
         new._replica_models = {}
         new._anchor_graphs = _graphs.Holder()
         new._block_graphs = _graphs.Holder()
+        new._beam_buffers = _graphs.Holder()
         return new
 
     def tensor(self, a, dtype=torch.float32):

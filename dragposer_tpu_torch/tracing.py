@@ -29,6 +29,11 @@ The spans, outermost first:
   ``dragposer.rollout.wait``: at a window, its count of the lanes that
   need it;
 * ``dragposer.to_host`` (``.wait``): ``engine.to_host``;
+* ``dragposer.beam``: ``hypotheses.run_hypotheses_batched``; in it, a
+  chunk, ``.chunk`` (its inputs copied into the chunk buffers and its
+  ``dragposer.pipeline``) then ``.select`` (its scores to the next
+  chunk's states), and last ``.emit`` (the winners' back-trace and their
+  ``dragposer.to_host``);
 * ``dragposer.frame``: ``RealtimeSession.drag_pose``, one session frame;
   in it ``dragposer.frame.begin`` (``engine._begin_frame``, its check in
   ``.wait``), ``dragposer.anchor.step`` (one ``_opt_body`` and select,
