@@ -41,6 +41,13 @@ host).  Both run the one loop of :func:`_optimize`.  A frame's phases,
 the anchor's iterations and the rollout are spans of a profiler's trace
 (``tracing.span``); ``ROLLOUTS`` logs each rollout and ``ANCHOR`` each
 anchor iteration while a profiler records.
+
+:func:`to_host` copies outputs to the host.  A batch's outputs lead with
+(B, T), lanes padded to the longest, and the pipeline writes nothing past a
+lane's length; on the card only each lane's prefix of rows that hold data
+crosses, packed on the device and streamed through a pinned ring that each
+device keeps (``_graphs.Holder``), into zeroed arrays that are the
+caller's own; ``COPIES`` logs each copy while a profiler records.
 """
 
 from __future__ import annotations
@@ -68,6 +75,16 @@ ROLLOUTS = _build.KernelCounts(log_name="rollout")
 # (``plain``); while a profiler records, each one's lanes and whether its
 # graph was captured in that call (``capture``)
 ANCHOR = _build.KernelCounts(log_name="anchor")
+# the outputs' copies to the host (:func:`to_host`) through a device's ring
+# of two pinned chunks: while a profiler records, each one's rows (B·T),
+# kept rows (Σ n_b), bytes copied and chunks streamed
+COPIES = _build.KernelCounts(log_name="to_host")
+# a chunk's copy in (a few ms) hides under the host's copy of the one
+# before out, and only the first is waited for; 16 MB chunks took 3–12%
+# longer on the offline cells
+_RING_CHUNK_BYTES = 64 << 20
+# a device's ring, in its holder
+_RINGS: dict = {}
 
 
 class DragHyper(NamedTuple):
@@ -794,10 +811,152 @@ def run_sequence(model, statics, skeleton, hyper: DragHyper, tparam,
 
 
 def to_host(out: FrameOutput) -> FrameOutput:
-    """``out``'s leaves as numpy arrays (waits for the device)."""
-    with span("dragposer.to_host"), span("dragposer.to_host.wait"):
-        return FrameOutput(*[x.cpu().numpy() if torch.is_tensor(x) else x
-                             for x in out])
+    """``out``'s leaves as numpy arrays (waits for the device; other leaves
+    as they are): CPU tensors shared, CUDA tensors of one device through
+    that device's ring (:func:`_copy_out`)."""
+    with span("dragposer.to_host"):
+        devices = {x.device for x in out if torch.is_tensor(x)}
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            with span("dragposer.to_host.wait"):
+                return type(out)(*[x.cpu().numpy() if torch.is_tensor(x)
+                                   else x for x in out])
+        device = devices.pop()
+        holder = _RINGS.setdefault(device, _graphs.Holder())
+        with holder.hold(device, "ring", lambda ring: True,
+                         lambda: _HostRing(device, _RING_CHUNK_BYTES)) as ring:
+            return _copy_out(out, ring)
+
+
+class _HostRing:
+    """Two host chunks of ``nbytes`` each, pinned for a CUDA ``device``,
+    and an event a chunk, recorded after its copy in."""
+
+    def __init__(self, device, nbytes: int):
+        cuda = torch.device(device).type == "cuda"
+        self.nbytes = nbytes
+        self.chunks = [torch.empty(nbytes, dtype=torch.uint8,
+                                   pin_memory=cuda) for _ in range(2)]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(2)]
+
+    def put(self, k: int, rows: torch.Tensor) -> np.ndarray:
+        """Copy ``rows`` (n, F) into chunk ``k % 2`` behind its event on
+        the current stream; the chunk as a numpy (n, F) array."""
+        dst = self.chunks[k % 2][:rows.numel() * rows.element_size()]
+        dst = dst.view(rows.dtype).view(rows.shape)
+        dst.copy_(rows, non_blocking=True)
+        if self.events[k % 2] is not None:
+            self.events[k % 2].record()
+        return dst.numpy()
+
+    def wait(self, k: int) -> None:
+        if self.events[k % 2] is not None:
+            self.events[k % 2].synchronize()
+
+
+def _copy_out(out, ring: _HostRing):
+    """``out``'s leaves as :func:`to_host` gives them, through ``ring``:
+    each lane's prefix of rows that hold data (``n_b``: one past the last
+    frame at which any leaf's row has a nonzero bit, ``-0.0`` included)
+    gathered on the device (span ``.pack``; skipped where every lane keeps
+    all T rows) and streamed through the ring into zeroed host arrays
+    (``.fill``).  Rows past ``n_b`` are zero bits in every leaf, so the
+    arrays equal ``.cpu().numpy()`` bit for bit whatever wrote ``out``.
+    Leaves of 4 bytes leading with (B, T), or (T,), take this path; others
+    ``.cpu()``."""
+    leaves = [x for x in out if torch.is_tensor(x)]
+    lead = min((x.shape for x in leaves), key=len) if leaves else ()
+    if len(lead) not in (1, 2) or not lead.numel() or any(
+            x.shape[:len(lead)] != lead or x.element_size() != 4
+            for x in leaves):
+        with span("dragposer.to_host.wait"):
+            return _rebuild(out, [x.cpu().numpy() for x in leaves])
+    B, T = (1,) * (2 - len(lead)) + tuple(lead)
+    flat = [x.reshape(B, T, -1) for x in leaves]
+    with span("dragposer.to_host.wait"):
+        n_dev = _kept_prefix(flat, T)
+        n = n_dev.cpu().numpy().astype(np.int64)
+    N = int(n.sum())
+    with span("dragposer.to_host.pack"):
+        if N == B * T:
+            packed = [x.reshape(B * T, -1) for x in flat]
+        else:
+            n_dev = n_dev.long()
+            first = torch.arange(B, device=n_dev.device) * T \
+                - (torch.cumsum(n_dev, 0) - n_dev)
+            index = torch.arange(N, device=n_dev.device) \
+                + torch.repeat_interleave(first, n_dev, output_size=N)
+            packed = [x.reshape(B * T, -1).index_select(0, index)
+                      for x in flat]
+    with span("dragposer.to_host.fill"):
+        # numpy's zeros (it asks for huge pages): an anonymous mapping's
+        # 4 KB pages, only the kept rows' written, took 2.4× as long on the
+        # offline cells' host
+        host = [np.zeros(x.shape, torch.empty(0, dtype=x.dtype).numpy().dtype)
+                for x in leaves]
+        chunks = _fill(packed, [h.reshape(B * T, -1) for h in host], n, T,
+                       ring)
+    COPIES.launched(rows=B * T, kept=N, chunks=chunks,
+                    bytes=sum(p.numel() * p.element_size() for p in packed))
+    return _rebuild(out, host)
+
+
+def _kept_prefix(flat, T: int) -> torch.Tensor:
+    """Each lane's ``n_b`` (B,) on the device: one past the last frame at
+    which some leaf's row (B, T, F) holds a nonzero bit."""
+    held = None
+    for x in flat:
+        low, high = torch.aminmax(x.view(torch.int32), dim=-1)
+        row = (low != 0) | (high != 0)
+        held = row if held is None else held | row
+    frame = torch.arange(1, T + 1, device=held.device)
+    return torch.where(held, frame, 0).amax(dim=1)
+
+
+def _fill(packed, dst, n: np.ndarray, T: int, ring: _HostRing) -> int:
+    """Stream ``packed`` (a leaf's kept rows, lane after lane) through
+    ``ring`` into ``dst`` (each (B·T, F)): lane b's ``n[b]`` rows to rows
+    b·T onwards, chunk k+1's copy in under the host's copy of chunk k out.
+    Returns the chunks streamed."""
+    lanes = np.flatnonzero(n)
+    start = (np.cumsum(n) - n)[lanes]
+    end = start + n[lanes]
+    base = lanes * T
+    N = int(n.sum())
+    whole = N == len(n) * T
+    chunks = []
+    for i, p in enumerate(packed):
+        per = ring.nbytes // (p.shape[1] * p.element_size())
+        chunks += [(i, r, min(r + per, N)) for r in range(0, N, per)]
+
+    def put(k):
+        i, r0, r1 = chunks[k]
+        return ring.put(k, packed[i][r0:r1])
+
+    got = put(0) if chunks else None
+    for k, (i, r0, r1) in enumerate(chunks):
+        src = got
+        if k + 1 < len(chunks):
+            got = put(k + 1)
+        ring.wait(k)
+        if whole:   # one copy a chunk, on torch's host threads
+            torch.from_numpy(dst[i][r0:r1]).copy_(torch.from_numpy(src))
+            continue
+        a, b = np.searchsorted(end, r0, "right"), np.searchsorted(start, r1)
+        lo = np.maximum(start[a:b], r0)
+        hi = np.minimum(end[a:b], r1)
+        to = base[a:b] + lo - start[a:b]
+        d = dst[i]
+        for t, s, e in zip(to.tolist(), (lo - r0).tolist(),
+                           (hi - r0).tolist()):
+            d[t:t + e - s] = src[s:e]
+    return len(chunks)
+
+
+def _rebuild(out, host):
+    """``out`` with its tensor leaves replaced by ``host``, in order."""
+    it = iter(host)
+    return type(out)(*[next(it) if torch.is_tensor(x) else x for x in out])
 
 
 def _lead(tree):

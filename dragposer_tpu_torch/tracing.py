@@ -28,7 +28,11 @@ The spans, outermost first:
 * ``dragposer.rollout``: ``engine._rollout_where_needed`` where K2 runs;
   ``dragposer.rollout.wait``: at a window, its count of the lanes that
   need it;
-* ``dragposer.to_host`` (``.wait``): ``engine.to_host``;
+* ``dragposer.to_host``: ``engine.to_host``; in it, on the card,
+  ``.wait`` (each lane's prefix that holds data, read to the host),
+  ``.pack`` (the prefixes gathered on the card) and ``.fill`` (the packed
+  rows through the pinned ring into the host's arrays); elsewhere
+  ``.wait`` alone;
 * ``dragposer.beam``: ``hypotheses.run_hypotheses_batched``; in it, a
   chunk, ``.chunk`` (its inputs copied into the chunk buffers and its
   ``dragposer.pipeline``) then ``.select`` (its scores to the next
@@ -69,7 +73,9 @@ def counter_totals() -> dict:
     K2's launches and lanes run; the rollouts' lanes run and the lanes
     among them that began a real frame (within the lane's length); the
     anchor's iterations, those that were graph replays and the captures;
-    the pipeline's blocks, those replayed as its graph and the captures."""
+    the pipeline's blocks, those replayed as its graph and the captures;
+    the rows of the outputs copied to the host and those kept (each
+    lane's prefix that holds data)."""
     from dragposer_tpu_torch import _build
 
     k1 = _build.launch_log("K1", "K1_general")
@@ -78,6 +84,7 @@ def counter_totals() -> dict:
     rollouts = _build.launch_log("rollout")
     anchor = _build.launch_log("anchor")
     blocks = _build.launch_log("block")
+    copies = _build.launch_log("to_host")
     return {
         "k1_launches": len(k1),
         "k1_lane_steps": int(sum(int(s.sum()) for s in steps)),
@@ -94,6 +101,8 @@ def counter_totals() -> dict:
         "pipeline_blocks": len(blocks),
         "pipeline_graph_replays": sum(not r["plain"] for r in blocks),
         "pipeline_graph_captures": sum(r["capture"] for r in blocks),
+        "to_host_rows": sum(r["rows"] for r in copies),
+        "to_host_kept_rows": sum(r["kept"] for r in copies),
     }
 
 
